@@ -1,0 +1,100 @@
+"""Pipeline CLI of the PyTorch port (port of ``light_unet_tpu/cli.py:94-200``).
+
+Same flags as the JAX package's CLI.  Only ``--mode inference`` is ported;
+the other stages raise ``NotImplementedError`` naming their ROADMAP item.
+
+    python -m light_unet_tpu_torch.cli --mode inference --config configs/unet_fl70.yaml \\
+        --model_path models/best_model.pth --processed_dir data/processed
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+from light_unet_tpu_torch.config import Config
+
+_NOT_PORTED = {
+    "split": "ROADMAP queue 1, item 9 (CLI)",
+    "preprocess": "ROADMAP queue 1, item 6 (preprocess stage)",
+    "train": "ROADMAP queue 1, item 8 (training)",
+    "evaluate": "ROADMAP queue 1, item 7 (evaluation)",
+    "all": "ROADMAP queue 1, items 6-9",
+    "bench": "ROADMAP queue 1 (a benchmark of the port is later work)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="Lightweight 3D U-Net pipeline (PyTorch + CUDA)")
+    parser.add_argument("--mode", type=str, required=True,
+                        choices=["all", "split", "preprocess", "train", "inference", "evaluate",
+                                 "bench"])
+    parser.add_argument("--config", type=str, default="configs/unet_fl70.yaml")
+    parser.add_argument("--data_root", "--raw_dir", type=str, default="data/raw")
+    parser.add_argument("--processed_dir", "--data_dir", type=str, default="data/processed")
+    parser.add_argument("--splits_dir", type=str, default="data/splits")
+    parser.add_argument("--model_path", "--model", type=str, default="models/best_model.pth")
+    parser.add_argument("--split_file", type=str, default=None,
+                        help="Split list for inference/evaluate (default: val)")
+    parser.add_argument("--case_id", type=str, default=None, help="Single case for inference")
+    parser.add_argument("--threshold", type=float, default=None, help="Probability threshold override")
+    parser.add_argument("--split", type=str, default="all", choices=["train", "val", "test", "all"])
+    parser.add_argument("--prob_maps_dir", type=str, default=None)
+    parser.add_argument("--output_dir", type=str, default=None)
+    parser.add_argument("--train_ratio", type=float, default=None)
+    parser.add_argument("--val_ratio", type=float, default=None)
+    parser.add_argument("--test_ratio", type=float, default=None)
+    parser.add_argument("--no_prob_maps", action="store_true",
+                        help="Skip saving probability maps (bboxes only)")
+    parser.add_argument("--allow_test", action="store_true")
+    parser.add_argument("--skip_split", action="store_true")
+    parser.add_argument("--skip_preprocess", action="store_true")
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--workdir", type=str, default=".",
+                        help="Root for relative output paths (never mutates the config file)")
+    parser.add_argument("--seed", type=int, default=None, help="Seed override")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="Torch device (default cuda; cpu only when asked for)")
+    return parser
+
+
+def _load_config(args) -> Config:
+    cfg_path = Path(args.config)
+    config = Config.load(cfg_path) if cfg_path.exists() else Config()
+    if not cfg_path.exists():
+        print(f"Config {cfg_path} not found; using built-in defaults")
+    config.data_dir = args.processed_dir
+    config.splits_dir = args.splits_dir
+    if args.seed is not None:
+        config.experiment.seed = args.seed
+    if args.threshold is not None:
+        config.validation.default_threshold = args.threshold
+    return config
+
+
+def run(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.mode != "inference":
+        raise NotImplementedError(
+            f"--mode {args.mode} is not ported to PyTorch yet: {_NOT_PORTED[args.mode]}")
+    config = _load_config(args)
+    workdir = Path(args.workdir)
+    from light_unet_tpu_torch.core.inferencer import Inferencer
+
+    model_path = Path(args.model_path)
+    if not model_path.is_absolute():
+        model_path = workdir / model_path
+    inferencer = Inferencer(config, model_path, workdir=args.workdir,
+                            save_prob_maps=not args.no_prob_maps, device=args.device)
+    if args.case_id:
+        ok = inferencer.infer_case(args.case_id, args.processed_dir,
+                                   threshold=config.validation.default_threshold)
+        return 0 if ok else 1
+    split_file = args.split_file or str(Path(args.splits_dir) / "val_list.txt")
+    result = inferencer.infer_split(split_file, args.processed_dir)
+    return 0 if not result["failed"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(run())
