@@ -14,7 +14,9 @@ Phases:
    beside ``F.instance_norm`` + ``F.leaky_relu``;
 4. the fused residual-block kernel at the 8 block shapes of a 48^3 patch,
    B = 192 in bf16 and B = 16 in f32, held against its plain version
-   (f32 <= 5e-5, bf16 <= 2e-2, relative to max(|ref|, 1)) and timed;
+   (f32 <= 5e-5, bf16 <= 2e-2, relative to max(|ref|, 1)) and timed, with
+   the device time of each of its three launches (conv1, conv2, out) from
+   torch.profiler and the tile each conv launch took;
 5. the serving path: a seeded ``best_model.pth`` and 4 processed
    144x144x272 cases with body masks go through ``Inferencer.infer_split``
    three times: ``tpu.fused_block`` (the block kernel's launch count must
@@ -32,6 +34,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -85,6 +88,55 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def kernel_name(symbol: str) -> str:
+    """A ptxas entry's Itanium-mangled name as ``name<args>`` (enough of the
+    grammar for this repo's kernels: nested names, int/bool literals,
+    ``float`` and named types as template arguments)."""
+    i, name = symbol.index("_ZN") + 3, ""
+
+    def ident(k):
+        j = k
+        while symbol[j].isdigit():
+            j += 1
+        n = int(symbol[k:j])
+        return symbol[j:j + n], j + n
+
+    while symbol[i].isdigit():
+        name, i = ident(i)
+    args = []
+    if symbol[i] == "I":
+        i += 1
+        while symbol[i] != "E":
+            if symbol[i] == "L":
+                j = symbol.index("E", i)
+                args.append(symbol[i + 2:j])
+                i = j + 1
+            elif symbol[i].isdigit():
+                arg, i = ident(i)
+                args.append(arg)
+            else:
+                args.append({"f": "float"}.get(symbol[i], symbol[i]))
+                i += 1
+    return name + (f"<{', '.join(args)}>" if args else "")
+
+
+def ptxas_usage(text: str) -> list:
+    """(kernel, "N registers, S bytes spill stores") per entry of an
+    ``nvcc -Xptxas -v`` log."""
+    out, kernel, spill = [], None, "?"
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(_Z\w+)'", line)
+        if m:
+            kernel = kernel_name(m.group(1))
+        elif kernel and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif kernel and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append((kernel, f"{regs} registers, {spill} bytes spill stores"))
+            kernel = None
+    return out
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -153,6 +205,31 @@ def block_ops(d: int, cin: int, c: int) -> tuple:
     return dw + norms, pw
 
 
+def launch_split(fn, calls: int = 3) -> dict:
+    """Device ms per call of each of K1's launches (conv1, conv2, out), by
+    kernel name, from torch.profiler over ``calls`` calls of ``fn``."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        m = re.search(r"(conv1|conv2|block_out)\w*(<[^>]*>)?", e.key)
+        if m:  # the stats memset is not a launch of the kernel
+            role = {"block_out": "out"}.get(m.group(1), m.group(1))
+            split[role] = (m.group(0), e.self_device_time_total / 1e3 / calls)
+    if set(split) != {"conv1", "conv2", "out"}:
+        raise AssertionError(f"profiler did not see K1's three launches: {split}")
+    return split
+
+
 def block_phase(model, batch: int, bar: float, gen, timed: bool):
     """K1 against its plain version at the 8 block shapes of a 48^3 patch,
     in the model's compute dtype."""
@@ -192,6 +269,12 @@ def block_phase(model, batch: int, bar: float, gen, timed: bool):
             log(f"  block {name} {d}^3 {cin}->{c} bf16 B={batch}: kernel {ms:.3f} ms, "
                 f"plain {plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.3f} ms "
                 f"({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+            plan = bk.kernel_plan(tuple(x.shape), c, dtype)
+            split = launch_split(lambda: bk.fused_residual_block(x, blk))
+            log(f"    launches: " + ", ".join(f"{role} {kname} {t:.3f} ms"
+                                              for role, (kname, t) in split.items())
+                + "; tiles (TD, TH, TW, smem bytes): "
+                + ", ".join(f"{k} {v}" for k, v in plan.items()))
         del x, got, want
     return rows, max_err
 
@@ -311,9 +394,8 @@ def main(argv=None) -> int:
     libs = _build.build_all()
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s -> {_build.build_dir()}")
     for name in libs:
-        for line in (_build.build_dir() / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for kernel, usage in ptxas_usage((_build.build_dir() / f"{name}.log").read_text()):
+            log(f"  {name}: {kernel}: {usage}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = 4 if args.quick else 192

@@ -1,8 +1,7 @@
 // Shared pieces of the port's CUDA kernels: type helpers, vector loads,
-// the InstanceNorm statistics pass and the normalize + LeakyReLU apply
-// pass.  instance_norm.cu launches the two passes as the fused
-// InstanceNorm + LeakyReLU kernel; residual_block.cu reuses the apply pass
-// for its norm1 step.
+// the InstanceNorm coefficients, and the InstanceNorm statistics and
+// normalize + LeakyReLU apply passes that instance_norm.cu launches as the
+// fused InstanceNorm + LeakyReLU kernel.
 //
 // Layout: a channels-last activation [B, S, C] (S = D*H*W spatial voxels),
 // float32 or bfloat16.  Statistics are per (sample, channel): a [B, C, 2]

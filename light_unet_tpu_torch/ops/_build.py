@@ -36,8 +36,10 @@ ENTRIES = {
     },
     "residual_block": {
         # x, dw1, pw1, n1s, n1b, dw2, pw2, n2s, n2b, sc, nss, nsb,
-        # h, h2, out, stats, dtype, B, D, H, W, Cin, C, eps, stream
-        "residual_block": [_P] * 16 + [_I] * 7 + [_F, _P],
+        # h, h2, out, stats, dtype, B, D, H, W, Cin, C, mma1, mma2, eps, stream
+        "residual_block": [_P] * 16 + [_I] * 9 + [_F, _P],
+        # D, H, W, Cin, C, projection, mma1, mma2, plan[6]
+        "residual_block_plan": [_I] * 8 + [_P],
     },
 }
 

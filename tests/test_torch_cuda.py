@@ -10,7 +10,7 @@ import torch
 
 from light_unet_tpu_torch.config import ModelConfig
 from light_unet_tpu_torch.models.fused_forward import make_fused_apply
-from light_unet_tpu_torch.models.unet3d import build_model, init_weights
+from light_unet_tpu_torch.models.unet3d import ResidualBlock, build_model, init_weights
 from light_unet_tpu_torch.ops import block_kernel, norm_kernel
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -49,3 +49,67 @@ def test_fused_model_matches_plain_model(gen, dtype, bar):
         want = model(x)
     assert block_kernel.launches == n + 8
     assert (got - want).abs().max().item() <= bar
+
+
+# (input shape, C) for the block kernel: the 8 serving blocks of a 48^3
+# patch at B = 2, then shapes off the serving path
+BLOCK_CASES = [
+    ((2, 48, 48, 48, 1), 16), ((2, 24, 24, 24, 16), 32), ((2, 12, 12, 12, 32), 64),
+    ((2, 6, 6, 6, 64), 128), ((2, 6, 6, 6, 128), 128), ((2, 12, 12, 12, 128), 64),
+    ((2, 24, 24, 24, 64), 32), ((2, 48, 48, 48, 32), 16),
+    ((2, 5, 7, 9, 16), 32),      # ragged, mma path
+    ((2, 5, 7, 9, 3), 5),        # ragged, channels off the mma tile
+    ((1, 6, 10, 12, 1), 16),     # Cin = 1, B = 1
+    ((1, 9, 6, 13, 32), 32),     # identity block, mma path, B = 1
+    ((2, 4, 4, 4, 24), 24),      # identity block off the mma tile
+    ((1, 3, 8, 16, 48), 16),     # Cin off the mma tile, C on it
+]
+
+
+def _block(cin, c, dtype, seed=0):
+    blk = ResidualBlock(cin, c, dropout_p=0.0, compute_dtype=dtype)
+    return init_weights(blk, torch.Generator().manual_seed(seed)).cuda().eval()
+
+
+def test_block_cases_cover_both_paths():
+    paths = {block_kernel.mma_paths(shape[-1], c, torch.bfloat16) for shape, c in BLOCK_CASES}
+    assert {(True, True), (False, True), (False, False)} <= paths
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,c", BLOCK_CASES, ids=lambda v: str(v))
+def test_block_kernel_matches_plain(gen, shape, c, dtype, bar):
+    """Max error relative to max(|ref|, 1): f32 sums in another order, and in
+    bf16 one rounding flip of an intermediate moves the output by an ulp."""
+    blk = _block(shape[-1], c, dtype)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    n = block_kernel.launches
+    got = block_kernel.fused_residual_block(x, blk)
+    assert block_kernel.launches == n + 1
+    want = block_kernel.reference_residual_block(x, blk)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    scale = max(want.float().abs().max().item(), 1.0)
+    assert (got.float() - want.float()).abs().max().item() / scale <= bar
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_kernel_follows_weight_update(gen, dtype):
+    blk = _block(32, 64, dtype)
+    x = torch.randn((2, 8, 8, 8, 32), generator=gen, device="cuda").to(dtype)
+    block_kernel.fused_residual_block(x, blk)
+    with torch.no_grad():
+        blk.conv2.pointwise.weight.mul_(-1.5)
+        blk.shortcut[0].weight.add_(0.1)
+    got = block_kernel.fused_residual_block(x, blk)
+    want = block_kernel.reference_residual_block(x, blk)
+    scale = max(want.float().abs().max().item(), 1.0)
+    bar = 5e-5 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() / scale <= bar
+
+
+def test_block_plan_fits(gen):
+    for shape, c in BLOCK_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = block_kernel.kernel_plan(shape, c, dtype)
+            assert all(p[0] > 0 and p[3] > 0 for p in plan.values()), (shape, c, plan)

@@ -86,3 +86,49 @@ def test_wrapper_has_no_fallback(lib):
     body = _function_source(module, wrapper)
     plain = body.index('if x.device.type == "cpu":')
     assert plain < body.index("_build.load(")
+
+
+BLOCK_SRC = CSRC / "residual_block.cu"
+
+
+def test_block_kernel_uses_tensor_cores_in_bf16():
+    """The bf16 pointwise products name their tensor-core instruction, read A
+    through ldmatrix, and the wrapper packs the weights as mma fragments."""
+    text = BLOCK_SRC.read_text()
+    assert re.search(r"\bw?gmma\b|mma\.sync\.aligned\.m16n8k16\.row\.col\.f32\.bf16\.bf16\.f32",
+                     text)
+    assert "ldmatrix.sync.aligned" in text
+    assert "_as_mma_fragments" in _function_source(block_kernel, "kernel_weights")
+
+
+def test_block_kernel_has_no_separate_norm_apply_pass():
+    """norm1 is applied while conv2 stages its halo: no in-place apply launch."""
+    text = BLOCK_SRC.read_text()
+    assert "launch_in_apply" not in text and "in_apply_kernel" not in text
+    assert "conv2_mma" in text and "APPLY" in text
+
+
+def test_block_kernel_statistics_have_no_shared_atomics():
+    """Norm statistics reduce in registers and shuffles; the only atomics are
+    the float64 adds to the [B, C, 2] statistics in device memory."""
+    text = BLOCK_SRC.read_text()
+    assert not re.search(r"atomicAdd\(\s*&?\s*s_", text)
+    assert "__shfl_xor_sync" in text
+    code = [ln for ln in text.splitlines() if "atomicAdd(" in ln and not ln.strip().startswith("//")]
+    assert code and all(", (double)" in ln for ln in code), code
+
+
+@pytest.mark.parametrize("phrase", [
+    "Bound on the card", "mma.sync.m16n8k16", "ldmatrix", "cp.async",
+    "double-buffered", "norm1 fused into conv2", "one float64 atomicAdd per CTA and channel",
+    "CUDA-core path", "low bits depend on the CTAs' order",
+])
+def test_block_kernel_source_note(phrase):
+    note = BLOCK_SRC.read_text().split("#include")[0]
+    assert phrase in " ".join(note.replace("//", " ").split())
+
+
+def test_block_wrapper_caches_weights():
+    body = _function_source(block_kernel, "fused_residual_block")
+    assert "kernel_weights(blk, dtype, dev)" in body
+    assert "_as_kernel_weights" not in body
