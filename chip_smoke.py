@@ -10,8 +10,11 @@ Phases:
 2. build the CUDA kernels from ``light_unet_tpu_torch/csrc`` (``ops/_build.py``);
 3. the fused InstanceNorm + LeakyReLU kernel at the four serving shapes,
    B = 192, bf16 and f32, slopes 0.01 and 1.0, held against its plain
-   version (f32 <= 1e-4 abs, bf16 <= 2e-2 abs) and timed beside it and
-   beside ``F.instance_norm`` + ``F.leaky_relu``;
+   version (f32 <= 1e-4 abs, bf16 <= 2e-2 abs), two calls on one input
+   bit-identical, and timed (CUDA events over 10 calls) beside it and
+   beside ``F.instance_norm`` + ``F.leaky_relu``; its device time per call
+   and device launches per call (must be 1) from torch.profiler, and its
+   plan (chunks per sample, CTAs per SM, samples per round, shared bytes);
 4. the fused residual-block kernel at the 8 block shapes of a 48^3 patch,
    B = 192 in bf16 and B = 16 in f32, held against its plain version
    (f32 <= 5e-5, bf16 <= 2e-2, relative to max(|ref|, 1)) and timed, with
@@ -90,6 +93,15 @@ def nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def nvidia_smi_clocks() -> str:
+    """SM clock now and at most, memory clock, power draw and temperature
+    (only logged: if nvidia-smi refuses the query, its message is printed)."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return (res.stdout.strip() or res.stderr.strip()).splitlines()[0]
+
+
 def kernel_name(symbol: str) -> str:
     """A ptxas entry's Itanium-mangled name as ``name<args>`` (enough of the
     grammar for this repo's kernels: nested names, int/bool literals,
@@ -155,7 +167,62 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def norm_phase(batch: int, gen):
+PROFILE_TRIES = 3
+
+
+def device_events(fn, calls: int, complete) -> list:
+    """Device events (kernels, memsets, copies) of ``calls`` calls of ``fn``
+    from torch.profiler, as ``key_averages()`` entries.  A session whose
+    events fail ``complete(events)`` is traced again, up to PROFILE_TRIES
+    times: the profiler on the card's machine now and then drops a session's
+    kernels.  Raises with what the last session saw."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if complete(events):
+            return events
+    raise AssertionError(f"profiler sessions incomplete in {PROFILE_TRIES} tries: "
+                         f"{[(e.key, e.count) for e in events]}")
+
+
+def device_launches(fn, match: str, calls: int = 5) -> tuple:
+    """(kernel name, device ms per call, device operations per call) of
+    ``fn`` from torch.profiler over ``calls`` calls: every kernel, memset and
+    copy the device ran is counted, and the one kernel whose name holds
+    ``match`` (seen ``calls`` times) is timed."""
+    events = device_events(
+        fn, calls, lambda ev: [e.count for e in ev if match in e.key] == [calls])
+    hit = next(e for e in events if match in e.key)
+    per_call = sum(e.count for e in events) / calls
+    return hit.key, hit.self_device_time_total / 1e3 / calls, per_call
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host µs per call of ``fn`` issued back to back, not waiting for the
+    device (the rate at which the host can enqueue calls)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def norm_phase(batch: int, gen, timed: bool):
     """K2 against its plain version; returns per-shape bf16 rows and the max errors."""
     import torch
     import torch.nn.functional as F
@@ -172,27 +239,43 @@ def norm_phase(batch: int, gen):
             for slope in (0.01, 1.0):
                 got = nk.fused_instance_norm_leaky_relu(x, s, b, negative_slope=slope)
                 want = nk.reference_instance_norm_leaky_relu(x, s, b, negative_slope=slope)
+                again = nk.fused_instance_norm_leaky_relu(x, s, b, negative_slope=slope)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 if not err <= bar:
                     raise AssertionError(f"norm kernel {d}^3x{c} {dtype} slope {slope}: "
                                          f"max abs err {err} > {bar}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"norm kernel {d}^3x{c} {dtype} slope {slope}: "
+                                         f"two calls on one input differ")
                 max_err[dtype] = max(max_err.get(dtype, 0.0), err)
-            if dtype != torch.bfloat16:
+            plan = nk.kernel_plan(tuple(x.shape), dtype)
+            log(f"  norm {d}^3 x {c} {str(dtype)[6:]} B={batch}: bit-identical twice; plan: "
+                f"k {plan['k']} chunks of {plan['rows_per_chunk']} rows, {plan['ctas_per_sm']} "
+                f"CTAs/SM, {plan['groups']} samples/round, {plan['smem']} smem bytes, "
+                f"{plan['threads']} threads, streams {plan['streams']}")
+            if dtype != torch.bfloat16 or not timed:
                 continue
             xv = x.permute(0, 4, 1, 2, 3)
             ms = cuda_ms(lambda: nk.fused_instance_norm_leaky_relu(x, s, b))
+            name, dev_ms, per_call = device_launches(
+                lambda: nk.fused_instance_norm_leaky_relu(x, s, b), "in_leaky")
+            enqueue_us = host_us(lambda: nk.fused_instance_norm_leaky_relu(x, s, b))
+            if per_call != 1:
+                raise AssertionError(f"norm kernel {d}^3x{c}: {per_call} device launches per call")
             plain_ms = cuda_ms(lambda: nk.reference_instance_norm_leaky_relu(x, s, b))
             lib_ms = cuda_ms(lambda: F.leaky_relu(
                 F.instance_norm(xv, weight=s.to(dtype), bias=b.to(dtype), eps=nk.IN_EPS), 0.01))
             nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = 6 * x.numel() / F32_FLOPS * 1e3
-            rows[(d, c)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            rows[(d, c)] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
                                 bytes_ms=bytes_ms, ops_ms=ops_ms)
-            log(f"  norm {d}^3 x {c} bf16 B={batch}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                f"F.instance_norm+leaky {lib_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.3f} ms")
-            del x, xv, got, want
+            log(f"    kernel {ms:.4f} ms (CUDA events), {dev_ms:.4f} ms device ({name}, "
+                f"{per_call:g} launch per call), host {enqueue_us:.1f} us per call, "
+                f"plain {plain_ms:.3f} ms, "
+                f"F.instance_norm+leaky {lib_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} ms")
+            del x, xv, got, want, again
     return rows, max_err
 
 
@@ -208,26 +291,17 @@ def block_ops(d: int, cin: int, c: int) -> tuple:
 def launch_split(fn, calls: int = 3) -> dict:
     """Device ms per call of each of K1's launches (conv1, conv2, out), by
     kernel name, from torch.profiler over ``calls`` calls of ``fn``."""
-    import torch
+    def roles(events):  # the stats memset is not a launch of the kernel
+        out = {}
+        for e in events:
+            m = re.search(r"(conv1|conv2|block_out)\w*(<[^>]*>)?", e.key)
+            if m:
+                out[{"block_out": "out"}.get(m.group(1), m.group(1))] = (m.group(0), e)
+        return out
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0:
-            continue
-        m = re.search(r"(conv1|conv2|block_out)\w*(<[^>]*>)?", e.key)
-        if m:  # the stats memset is not a launch of the kernel
-            role = {"block_out": "out"}.get(m.group(1), m.group(1))
-            split[role] = (m.group(0), e.self_device_time_total / 1e3 / calls)
-    if set(split) != {"conv1", "conv2", "out"}:
-        raise AssertionError(f"profiler did not see K1's three launches: {split}")
-    return split
+    events = device_events(fn, calls, lambda ev: set(roles(ev)) == {"conv1", "conv2", "out"})
+    return {role: (name, e.self_device_time_total / 1e3 / calls)
+            for role, (name, e) in roles(events).items()}
 
 
 def block_phase(model, batch: int, bar: float, gen, timed: bool):
@@ -388,6 +462,7 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | {kind}")
+    log(f"[clocks] sm, max sm, mem, power, temperature: {nvidia_smi_clocks()}")
 
     # 2. build
     t0 = time.perf_counter()
@@ -402,7 +477,7 @@ def main(argv=None) -> int:
 
     # 3. K2
     log(f"[norm kernel] B={batch}")
-    norm_rows, norm_err = norm_phase(batch, gen)
+    norm_rows, norm_err = norm_phase(batch, gen, timed=not args.quick)
     log(f"  max abs err: bf16 {norm_err[torch.bfloat16]:.3e}, f32 {norm_err[torch.float32]:.3e}")
 
     # 4. K1
@@ -415,6 +490,7 @@ def main(argv=None) -> int:
     block_rows, block_err = block_phase(model, batch, 2e-2, gen, timed=not args.quick)
     _, block_err32 = block_phase(model32, 4 if args.quick else 16, 5e-5, gen, timed=False)
     log(f"  max abs err: bf16 {block_err:.3e}, f32 {block_err32:.3e}")
+    log(f"[clocks] after the kernel phases: {nvidia_smi_clocks()}")
     if args.quick:
         log(f"[quick] kernels built and checked in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -491,7 +567,9 @@ def main(argv=None) -> int:
             "library_ms": total(norm_rows, "library_ms", norm_calls),
         },
     ]
-    log("[result] per-kernel times are sums over one 192-patch bf16 forward")
+    log("[result] per-kernel times are sums over one 192-patch bf16 forward; "
+        f"instance_norm_leaky device time {total(norm_rows, 'device_ms', norm_calls):.4f} ms "
+        f"(CUDA events {total(norm_rows, 'ms', norm_calls):.4f} ms)")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -31,8 +31,10 @@ NVCC_FLAGS = [
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 ENTRIES = {
     "instance_norm": {
-        # x, scale, bias, y, stats, dtype, B, S, C, eps, slope, stream
-        "instance_norm_leaky": [_P, _P, _P, _P, _P, _I, _I, _L, _I, _F, _F, _P],
+        # x, scale, bias, y, part, sync, dtype, B, S, C, plan[8], eps, slope, stream
+        "instance_norm_leaky": [_P] * 6 + [_I, _I, _L, _I, _P, _F, _F, _P],
+        # dtype, B, S, C, plan[8]
+        "instance_norm_plan": [_I, _I, _L, _I, _P],
     },
     "residual_block": {
         # x, dw1, pw1, n1s, n1b, dw2, pw2, n2s, n2b, sc, nss, nsb,

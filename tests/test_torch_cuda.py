@@ -38,6 +38,85 @@ def test_norm_kernel_matches_plain(gen, shape, dtype, bar):
     assert (got.float() - want.float()).abs().max().item() <= bar
 
 
+def _norm_inputs(gen, shape, dtype):
+    x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(dtype)
+    s = 0.5 + 0.05 * torch.randn(shape[-1], generator=gen, device="cuda")
+    b = 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
+    return x, s, b
+
+
+# shapes of K2 beyond the serving ones: S not a multiple of the chunk (k > 1,
+# a short last chunk), C in {1, 3, 5, 16, 128} held whole and in chunks,
+# B = 1, B over one round (48^3 x 16 bf16 takes 8 samples a round), float32
+# at 48^3, and a float32 96^3 sample too large to hold on chip (streams)
+NORM_CASES = [
+    (2, 33, 35, 37, 16), (1, 33, 35, 37, 3), (2, 29, 31, 30, 1), (2, 20, 21, 22, 5),
+    (1, 24, 24, 24, 128), (3, 6, 6, 6, 1), (2, 7, 5, 3, 5), (20, 48, 48, 48, 16),
+    (2, 48, 48, 48, 16), (1, 96, 96, 96, 16),
+]
+
+
+@pytest.mark.parametrize("slope", [0.01, 1.0])
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", NORM_CASES, ids=str)
+def test_norm_kernel_shapes(gen, shape, dtype, bar, slope):
+    x, s, b = _norm_inputs(gen, shape, dtype)
+    got = norm_kernel.fused_instance_norm_leaky_relu(x, s, b, negative_slope=slope)
+    want = norm_kernel.reference_instance_norm_leaky_relu(x, s, b, negative_slope=slope)
+    assert got.shape == x.shape and got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= bar
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(20, 48, 48, 48, 16), (192, 6, 6, 6, 128), (2, 20, 21, 22, 5)],
+                         ids=str)
+def test_norm_kernel_is_deterministic_and_leaves_counters_ready(gen, shape, dtype):
+    """Two calls on one input give the same bits, and each call leaves every
+    sample's arrival counter at 0, so the next call needs no memset."""
+    x, s, b = _norm_inputs(gen, shape, dtype)
+    first = norm_kernel.fused_instance_norm_leaky_relu(x, s, b)
+    second = norm_kernel.fused_instance_norm_leaky_relu(x, s, b)
+    assert torch.equal(first, second)
+    for (dev, _, bb, ss, cc, dt), (plan, _, sync) in norm_kernel._workspaces.items():
+        if (bb, ss, cc, dt) == (shape[0], shape[1] * shape[2] * shape[3], shape[4], dtype):
+            assert int(sync[:, 0].abs().sum()) == 0
+            assert plan[0] == 1 or int(sync[:, 1].min()) >= 2  # one generation per call
+    x2, s2, b2 = _norm_inputs(gen, shape, dtype)  # a new input right after: still right
+    got = norm_kernel.fused_instance_norm_leaky_relu(x2, s2, b2)
+    want = norm_kernel.reference_instance_norm_leaky_relu(x2, s2, b2)
+    bar = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= bar
+
+
+def test_norm_kernel_takes_unaligned_and_strided_input(gen):
+    x, s, b = _norm_inputs(gen, (2, 9, 9, 9, 17), torch.bfloat16)
+    flat = torch.cat([x.new_zeros(1), x[..., 1:].flatten()])
+    views = [x[..., 1:],                         # C = 16 view, not contiguous
+             flat[1:].view(2, 9, 9, 9, 16)]      # contiguous, base 2 bytes off 16
+    for xv in views:
+        got = norm_kernel.fused_instance_norm_leaky_relu(xv, s[1:], b[1:])
+        want = norm_kernel.reference_instance_norm_leaky_relu(xv, s[1:], b[1:])
+        assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(192, 48, 48, 48, 16), (192, 24, 24, 24, 32),
+                                   (192, 12, 12, 12, 64), (192, 6, 6, 6, 128)] + NORM_CASES,
+                         ids=str)
+def test_norm_plan_matches_mirror(gen, shape, dtype):
+    from torch_norm_plan import H100, norm_plan  # tests/ is on the path (pytest prepend mode)
+
+    plan = norm_kernel.kernel_plan(shape, dtype)
+    props = torch.cuda.get_device_properties(0)
+    b, d, h, w, c = shape
+    want = norm_plan(
+        torch.tensor([], dtype=dtype).element_size(), b, d * h * w, c, sms=plan["sms"],
+        smem_per_sm=getattr(props, "shared_memory_per_multiprocessor", H100["smem_per_sm"]),
+        smem_per_block=getattr(props, "shared_memory_per_block_optin", H100["smem_per_block"]),
+        ctas_per_sm=plan["ctas_per_sm"])
+    assert plan == want
+
+
 @pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
 def test_fused_model_matches_plain_model(gen, dtype, bar):
     model = init_weights(build_model(ModelConfig(), dtype, inference=True),

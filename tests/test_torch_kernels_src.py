@@ -128,6 +128,63 @@ def test_block_kernel_source_note(phrase):
     assert phrase in " ".join(note.replace("//", " ").split())
 
 
+NORM_SRC = CSRC / "instance_norm.cu"
+
+
+def _code_lines(text):
+    return [ln for ln in text.splitlines() if not ln.strip().startswith("//")]
+
+
+def test_norm_kernel_has_no_data_atomics_or_memset():
+    """K2's statistics meet in a fixed order: the only atomics are the
+    unsigned arrival and generation words, and no call clears a buffer."""
+    text = NORM_SRC.read_text()
+    code = [ln for ln in _code_lines(text) if "atomic" in ln]
+    assert code and all(re.search(r"atomic(Add|Exch)\(sync(\s*\+\s*1)?, [01]u\)", ln)
+                        for ln in code), code
+    assert "double" not in " ".join(code)
+    assert "cudaMemset" not in text and "cudaMemset" not in (CSRC / "common.cuh").read_text()
+
+
+def test_norm_kernel_launches_once_cooperatively():
+    """One launch per call, cooperative (all CTAs resident or the launch is
+    refused), and the C entry returns the launch's error."""
+    text = NORM_SRC.read_text()
+    assert "<<<" not in text
+    assert text.count("cudaLaunchCooperativeKernel(") == 1
+    assert "return cudaLaunchCooperativeKernel(" in text
+    assert "cp.async" in text and "__shfl_xor_sync" in text
+
+
+def test_two_pass_norm_code_is_gone():
+    text = (CSRC / "common.cuh").read_text()
+    for name in ("in_stats_kernel", "in_apply_kernel", "launch_in_stats", "launch_in_apply",
+                 "row_threads", "row_grid", "kRowsPerBlock"):
+        assert name not in text, name
+        assert name not in NORM_SRC.read_text(), name
+
+
+def test_norm_wrapper_caches_its_host_work():
+    """No per-call float32 copies of scale and bias, no per-call scratch: the
+    plan and workspace are cached, and only y is allocated."""
+    body = _function_source(norm_kernel, "fused_instance_norm_leaky_relu")
+    assert "as_f32(scale, x.device), as_f32(bias, x.device)" in body
+    assert "_workspace(lib, x, stream)" in body
+    assert "torch.empty(" not in body and "torch.zeros(" not in body
+    assert body.count("empty_like(") == 1
+    assert set(_build.ENTRIES["instance_norm"]) == {"instance_norm_leaky", "instance_norm_plan"}
+
+
+@pytest.mark.parametrize("phrase", [
+    "Bound on the card", "read from device memory once", "cp.async", "cudaLaunchCooperativeKernel",
+    "bit-identical from run to run", "no atomics touch the data", "zeroed once",
+    "streaming variant",
+])
+def test_norm_kernel_source_note(phrase):
+    note = NORM_SRC.read_text().split("#include")[0]
+    assert phrase.lower() in " ".join(note.replace("//", " ").split()).lower()
+
+
 def test_block_wrapper_caches_weights():
     body = _function_source(block_kernel, "fused_residual_block")
     assert "kernel_weights(blk, dtype, dev)" in body
