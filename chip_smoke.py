@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # the full check (one card, about 5-10 minutes)
     python3 chip_smoke.py --quick    # build + kernel checks at a small batch only
-    python3 chip_smoke.py --profile  # also trace the fused_block serving run
+    python3 chip_smoke.py --profile  # also trace the fused_block serving and fused-pipeline runs
 
 Phases:
 1. device line: ``nvidia-smi`` name and power limit, torch and CUDA versions;
@@ -20,14 +20,32 @@ Phases:
    (f32 <= 5e-5, bf16 <= 2e-2, relative to max(|ref|, 1)) and timed, with
    the device time of each of its three launches (conv1, conv2, out) from
    torch.profiler and the tile each conv launch took;
-5. the serving path: a seeded ``best_model.pth`` and 4 processed
-   144x144x272 cases with body masks go through ``Inferencer.infer_split``
-   three times: ``tpu.fused_block`` (the block kernel's launch count must
-   rise, the plain block must never run), ``tpu.use_pallas`` (the norm
-   kernel's count must rise), and neither gate (the plain model), whose
-   prob maps the first two must match within 5e-2 abs;
-6. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.
+5. raw -> preprocess: 4 raw SUV-like 144x144x272 phantoms with labels at
+   4 mm (body ellipsoid with cold pockets, a scanner bed, air specks, hot
+   spheres; seeded) go through the port's
+   ``split_dataset`` (ratios 0/1/0: all to val) and ``run_preprocess`` on
+   the card; one case's processed image, body mask and voxel counts are
+   held against the port's own CPU run of ``normalize_and_body_mask``
+   (mask and counts equal, normalized <= 1e-6 abs); logged: seconds per
+   case, one case's time split serially (decode, percentiles, device pass,
+   NIfTI writes), CUDA-event ms of the body-mask chain and
+   ``label_propagate`` rounds per volume;
+6. the serving path: a seeded ``best_model.pth`` and the preprocessed tree
+   (its body masks included) go through ``Inferencer.infer_split`` three
+   times: ``tpu.fused_block`` (the block kernel's launch count must rise,
+   the plain block must never run), ``tpu.use_pallas`` (the norm kernel's
+   count must rise), and neither gate (the plain model), whose prob maps
+   the first two must match within 5e-2 abs;
+7. the fused per-volume pipeline: ``FusedVolumePipeline`` over the 4 raw
+   volumes (uint16 upload and fetch, sparse fetch, decode and prepare on a
+   worker thread) under the same three gates with the same launch-count
+   bars and the same 5e-2 bar; each map must be exactly 0 wherever
+   ``body_mask_core`` of the same dequantized volume on the card is 0;
+   logged: vol/s, peak device memory, and under ``fused_block`` one
+   volume's time split serially (decode, prepare, dispatch, fetch);
+8. one JSON line of per-kernel numbers (launches summed over the serving
+   and fused-pipeline runs under the kernel's gate), the ``nvidia-smi``
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Float32 comparisons run with TF32 off.
 """
@@ -353,34 +371,270 @@ def block_phase(model, batch: int, bar: float, gen, timed: bool):
     return rows, max_err
 
 
-def write_phantom_cases(data_dir: Path, splits_dir: Path, seed: int) -> list:
-    """Processed whole-body phantoms in [0, 1] (body ellipsoid + hot
-    spheres) with body masks, at 4 mm, and a split file."""
+def write_raw_cases(raw_dir: Path, seed: int) -> list:
+    """Raw whole-body PET phantoms at 4 mm with lesion labels, seeded:
+    SUV-like intensities (air near 0, a textured body ellipsoid around
+    1-2.5, cold pockets inside it that the closing fills, a scanner-bed slab
+    and specks of air noise that the largest component drops, hot spheres of
+    SUV 6-15 as lesions)."""
     from light_unet_tpu_torch.utils import nifti
 
     rng = np.random.default_rng(seed)
-    for sub in ("images", "body_masks"):
-        (data_dir / sub).mkdir(parents=True, exist_ok=True)
-    splits_dir.mkdir(parents=True, exist_ok=True)
+    for sub in ("images", "labels"):
+        (raw_dir / sub).mkdir(parents=True, exist_ok=True)
     aff = np.diag([4.0, 4.0, 4.0, 1.0])
     shape = SERVING_SHAPE
     zz, yy, xx = np.ogrid[: shape[0], : shape[1], : shape[2]]
     body = ((zz - shape[0] / 2) ** 2 / (0.42 * shape[0]) ** 2
-            + (yy - shape[1] / 2) ** 2 / (0.42 * shape[1]) ** 2
+            + (yy - shape[1] / 2) ** 2 / (0.36 * shape[1]) ** 2
             + (xx - shape[2] / 2) ** 2 / (0.45 * shape[2]) ** 2) <= 1.0
+    # the bed lies 12 voxels below the body, more than the closing (radius 5)
+    # bridges, so the largest component drops it
+    bed = (yy >= int(0.95 * shape[1])) & (yy < int(0.95 * shape[1]) + 2) & (zz >= 8) & (xx >= 8)
     ids = [f"{i + 1:04d}" for i in range(N_CASES)]
     for cid in ids:
-        img = body * (0.2 + 0.05 * rng.random(shape, dtype=np.float32))
+        img = body * (1.0 + 1.5 * rng.random(shape, dtype=np.float32))
+        img += 0.05 * rng.random(shape, dtype=np.float32)
+        img[np.broadcast_to(bed, shape)] = 0.4
+        for _ in range(6):  # cold pockets of radius 2
+            c = [int(rng.integers(int(s * 0.3), int(s * 0.7))) for s in shape]
+            img[(zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2 <= 4] = 0.01
+        specks = rng.random(shape) < 2e-5
+        img[specks & ~body] = 0.5
+        label = np.zeros(shape, np.uint8)
         for _ in range(4):
             c = [int(rng.integers(int(s * 0.3), int(s * 0.7))) for s in shape]
             r = int(rng.integers(2, 5))
-            img[(zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2 <= r * r] = 0.9
+            sphere = (zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2 <= r * r
+            img[sphere] = rng.uniform(6.0, 15.0)
+            label[sphere] = 1
         nifti.save(nifti.Nifti1Image(img.astype(np.float32), aff),
-                   data_dir / "images" / f"{cid}_0000.nii.gz")
-        nifti.save(nifti.Nifti1Image(body.astype(np.uint8), aff),
-                   data_dir / "body_masks" / f"{cid}.nii.gz")
-    (splits_dir / "val_list.txt").write_text("\n".join(ids) + "\n")
+                   raw_dir / "images" / f"{cid}_0000.nii.gz")
+        nifti.save(nifti.Nifti1Image(label, aff), raw_dir / "labels" / f"{cid}.nii.gz")
     return ids
+
+
+def ccl_rounds(mask) -> int:
+    """Rounds ``ops/ccl.label_propagate`` takes on ``mask``: its sweeps,
+    counted here, with the labels held equal to its own."""
+    import torch
+
+    from light_unet_tpu_torch.ops import ccl
+
+    n = mask.numel()
+    labels = torch.arange(1, n + 1, dtype=torch.int64, device=mask.device).reshape(mask.shape)
+    labels = labels * (mask > 0)
+    rounds = 0
+    while True:
+        prev, rounds = labels, rounds + 1
+        for axis in range(3):
+            labels = ccl._axis_sweep(labels, axis, False, n + 1)
+            labels = ccl._axis_sweep(labels, axis, True, n + 1)
+        if torch.equal(labels, prev):
+            break
+    if not torch.equal(labels, ccl.label_propagate(mask)):
+        raise AssertionError("counted CCL sweeps disagree with label_propagate")
+    return rounds
+
+
+def preprocess_phase(tmp: Path, config: dict) -> tuple:
+    """Raw phantoms -> split -> ``run_preprocess`` on the card; one case held
+    against the CPU.  Returns (processed dir, val split file, raw image paths)."""
+    import torch
+
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.ops.body_mask import body_mask_core, body_mask_settings
+    from light_unet_tpu_torch.ops.fused import normalize_and_body_mask
+    from light_unet_tpu_torch.ops.intensity import compute_clip_values, pad_volume
+    from light_unet_tpu_torch.ops.morphology import binary_closing
+    from light_unet_tpu_torch.ops.sliding_window import _valid_mask
+    from light_unet_tpu_torch.pipeline.preprocess import run_preprocess
+    from light_unet_tpu_torch.pipeline.split import split_dataset
+    from light_unet_tpu_torch.utils import nifti
+
+    raw, splits, processed = tmp / "raw", tmp / "splits", tmp / "processed"
+    t0 = time.perf_counter()
+    ids = write_raw_cases(raw, seed=0)
+    log(f"[preprocess] {N_CASES} raw cases {SERVING_SHAPE} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    manifest = split_dataset(raw, splits, 0.0, 1.0, 0.0, seed=42)
+    if manifest["splits"]["val"] != ids:
+        raise AssertionError(f"split put {manifest['split_sizes']} cases, not all 4 in val")
+    cfg = Config.from_dict(config)
+    summaries = run_preprocess(cfg, raw, processed, splits, split="val", device="cuda")
+    val = summaries["val"]
+    if val["successful"] != N_CASES or val["failed"]:
+        raise AssertionError(f"preprocess failed: {val['failed_cases']}")
+    log(f"  run_preprocess on the card: {val['seconds'] / N_CASES:.2f} s per case "
+        f"(decode, percentiles, device pass, NIfTI writes)")
+
+    # one case against the port's CPU run of the same pass
+    cid = ids[0]
+    image = nifti.load(raw / f"images/{cid}_0000.nii.gz").get_fdata(np.float32)
+    t0 = time.perf_counter()
+    norm_cpu, mask_cpu, imeta, mmeta = normalize_and_body_mask(
+        image, cfg.data.intensity, cfg.data.body_mask, z_bucket=cfg.tpu.z_bucket, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    norm_card = nifti.load(processed / f"images/{cid}_0000.nii.gz").get_fdata(np.float32)
+    mask_card = nifti.load(processed / f"body_masks/{cid}.nii.gz").get_fdata(np.float32) > 0.5
+    meta = json.loads((processed / f"metadata/{cid}.json").read_text())
+    err = float(np.abs(norm_card - norm_cpu).max())
+    if not (np.array_equal(mask_card, mask_cpu) and meta["body_mask"] == mmeta
+            and meta["clip_values"] == imeta["clip_values"] and err <= 1e-6):
+        raise AssertionError(f"case {cid}: card and CPU preprocess differ (normalized {err}, "
+                             f"counts {meta['body_mask']['voxel_counts']} vs "
+                             f"{mmeta['voxel_counts']})")
+    log(f"  case {cid} vs the CPU run ({cpu_s:.1f} s): mask equal, counts equal "
+        f"{mmeta['voxel_counts']}, normalized max abs diff {err:.1e} (bar 1e-6)")
+
+    # where one case's time goes, serially
+    t0 = time.perf_counter()
+    image = nifti.load(raw / f"images/{cid}_0000.nii.gz").get_fdata(np.float32)
+    t1 = time.perf_counter()
+    compute_clip_values(image, cfg.data.intensity.clip_percentile_low,
+                        cfg.data.intensity.clip_percentile_high)
+    t2 = time.perf_counter()
+    norm, mask, _, _ = normalize_and_body_mask(image, cfg.data.intensity, cfg.data.body_mask,
+                                               z_bucket=cfg.tpu.z_bucket, device="cuda")
+    t3 = time.perf_counter()
+    nifti.save(nifti.Nifti1Image(norm, np.diag([4.0, 4.0, 4.0, 1.0])), tmp / "phase_probe.nii.gz")
+    nifti.save(nifti.Nifti1Image(mask.astype(np.uint8), np.diag([4.0, 4.0, 4.0, 1.0])),
+               tmp / "phase_probe_mask.nii.gz")
+    t4 = time.perf_counter()
+    log(f"  one case, serially: decode {t1 - t0:.3f} s, percentiles {t2 - t1:.3f} s, "
+        f"device pass (upload, normalize, body mask, fetch) {t3 - t2 - (t2 - t1):.3f} s, "
+        f"NIfTI writes (image + mask) {t4 - t3:.3f} s")
+
+    # the body-mask chain alone on the card, and its CCL rounds, per volume
+    settings = body_mask_settings(cfg.data.body_mask)
+    for cid in ids:
+        norm = nifti.load(processed / f"images/{cid}_0000.nii.gz").get_fdata(np.float32)
+        padded = torch.from_numpy(pad_volume(norm, cfg.tpu.z_bucket)).cuda()
+        valid = _valid_mask(padded.shape, norm.shape, padded.device)
+        ms = cuda_ms(lambda: body_mask_core(padded, valid, *settings), iters=3, warmup=1)
+        closed = binary_closing((padded > settings[0]).float() * valid, settings[1], valid)
+        log(f"  body-mask chain {tuple(padded.shape)}: {ms:.2f} ms (CUDA events), "
+            f"label_propagate {ccl_rounds(closed)} rounds, case {cid}")
+    return processed, splits / "val_list.txt", [raw / f"images/{i}_0000.nii.gz" for i in ids]
+
+
+GATES = [("fused_block", {"fused_block": True, "use_pallas": False}),
+         ("use_pallas", {"fused_block": False, "use_pallas": True}),
+         ("plain", {"fused_block": False, "use_pallas": False})]
+
+
+def check_gates(counts: dict, what: str) -> None:
+    """The launch-count bars of the three gated runs."""
+    if counts["fused_block"]["block"] == 0 or counts["fused_block"]["plain_block"] != 0:
+        raise AssertionError(f"fused_block {what} did not go through the block kernel: "
+                             f"{counts['fused_block']}")
+    if counts["use_pallas"]["norm"] == 0:
+        raise AssertionError(f"use_pallas {what} did not go through the norm kernel: "
+                             f"{counts['use_pallas']}")
+    if counts["plain"] != dict(block=0, plain_block=0, norm=0):
+        raise AssertionError(f"plain {what} launched a kernel: {counts['plain']}")
+
+
+def check_against_plain(runs: dict, what: str) -> None:
+    for name in ("fused_block", "use_pallas"):
+        err = max(float(np.abs(runs[name][c] - runs["plain"][c]).max()) for c in runs["plain"])
+        log(f"  {name} vs plain model ({what}): max abs prob diff {err:.3e} (bar 5e-2)")
+        if not err <= 5e-2:
+            raise AssertionError(f"{name} {what} maps differ from the plain model by {err}")
+
+
+def fused_run(config, state: dict, paths: list, profile: bool = False):
+    """``FusedVolumePipeline`` over raw volumes, decode and prepare on a
+    worker thread; returns (vol/s, peak bytes, {case: map}, {case: prepared})."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from light_unet_tpu_torch.models.fused_forward import make_fused_apply
+    from light_unet_tpu_torch.models.unet3d import build_model
+    from light_unet_tpu_torch.ops.fused import FusedVolumePipeline
+    from light_unet_tpu_torch.utils import nifti
+
+    model = build_model(config.model, torch.bfloat16, inference=True,
+                        use_pallas=config.tpu.use_pallas)
+    model.load_state_dict(state, strict=True)
+    model = model.cuda().eval()
+    apply_fn = make_fused_apply(model) if config.tpu.fused_block else model
+    pipe = FusedVolumePipeline(apply_fn, config, patch_batch=config.tpu.patch_batch, device="cuda")
+    preps = {}
+
+    def load_and_prepare(path):
+        prep = pipe.prepare(nifti.load(path).get_fdata(np.float32))
+        preps[path.name.split("_")[0]] = prep
+        return prep
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    maps = []
+    with prof if profile else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        pending = None
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            for prep in pool.map(load_and_prepare, paths):
+                dispatched = pipe.dispatch(prep)
+                if pending is not None:
+                    maps.append(pipe.fetch(pending))
+                pending = dispatched
+            maps.append(pipe.fetch(pending))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    if profile:
+        report_profile(prof, seconds)
+    out = {p.name.split("_")[0]: m for p, m in zip(paths, maps)}
+    for cid, m in out.items():
+        if m.shape != SERVING_SHAPE or not np.isfinite(m).all() or not m.max() > 0:
+            raise AssertionError(f"bad fused map {cid}: {m.shape}, max {m.max()}")
+    return len(paths) / seconds, torch.cuda.max_memory_allocated(), out, preps, pipe
+
+
+def fused_phases(pipe, path: Path) -> None:
+    """One volume through ``pipe`` serially: decode, prepare (host work and
+    upload), dispatch (enqueue), fetch (device work and copy back)."""
+    import torch
+
+    from light_unet_tpu_torch.utils import nifti
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    image = nifti.load(path).get_fdata(np.float32)
+    t1 = time.perf_counter()
+    prep = pipe.prepare(image)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dispatched = pipe.dispatch(prep)
+    t3 = time.perf_counter()
+    pipe.fetch(dispatched)
+    t4 = time.perf_counter()
+    log(f"  one volume, serially: decode {t1 - t0:.3f} s, prepare {t2 - t1:.3f} s, "
+        f"dispatch {t3 - t2:.3f} s, fetch (device work + copy) {t4 - t3:.3f} s")
+
+
+def check_zero_outside_body(config, maps: dict, preps: dict) -> None:
+    """Each map is exactly 0 wherever ``body_mask_core`` of the same
+    dequantized volume, on the card, is 0."""
+    import torch
+
+    from light_unet_tpu_torch.ops.body_mask import body_mask_core, body_mask_settings
+    from light_unet_tpu_torch.ops.fused import normalize_volume
+
+    rng = config.data.intensity.normalization_range
+    for cid, m in maps.items():
+        volume, shape, lo, hi = preps[cid][:4]
+        with torch.no_grad():
+            norm, valid = normalize_volume(volume, shape, lo, hi, range_min=float(rng[0]),
+                                           range_max=float(rng[1]), dequant=True)
+            body = body_mask_core(norm, valid, *body_mask_settings(config.data.body_mask))[0]
+        body = body.cpu().numpy()[: shape[0], : shape[1], : shape[2]] > 0.5
+        if not body.any() or body.all() or np.any(m[~body] != 0):
+            raise AssertionError(f"case {cid}: map not zero outside the body mask "
+                                 f"({int(np.count_nonzero(m[~body]))} voxels)")
 
 
 def report_profile(prof, wall_s: float) -> None:
@@ -435,7 +689,8 @@ def serve(config: dict, model_path: Path, data_dir: Path, split: Path, workdir: 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="trace the fused_block serving run with torch.profiler")
+                        help="trace the fused_block serving and fused-pipeline runs with "
+                        "torch.profiler")
     parser.add_argument("--quick", action="store_true",
                         help="build and check the kernels at a small batch; skip timing and serving")
     args = parser.parse_args(argv)
@@ -495,23 +750,19 @@ def main(argv=None) -> int:
         log(f"[quick] kernels built and checked in {time.perf_counter() - t_start:.1f} s")
         return 0
 
-    # 5. the serving path
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO) as tmp:
         tmp = Path(tmp)
+        # 5. raw -> split -> preprocess on the card
+        data_dir, split, raw_paths = preprocess_phase(tmp, SERVING)
+
+        # 6. the serving path, from the preprocessed tree
         model_path = tmp / "models/best_model.pth"
         model_path.parent.mkdir(parents=True)
         state = {k: v.cpu() for k, v in model.state_dict().items()}
         torch.save({"model_state_dict": state, "epoch": 0}, model_path)
-        data_dir, splits = tmp / "processed", tmp / "splits"
-        t0 = time.perf_counter()
-        write_phantom_cases(data_dir, splits, seed=0)
-        log(f"[serving] {N_CASES} cases {SERVING_SHAPE} written in {time.perf_counter() - t0:.1f} s")
-        split = splits / "val_list.txt"
-        runs = {}
-        counts = {}
-        for name, gates in [("fused_block", {"fused_block": True, "use_pallas": False}),
-                            ("use_pallas", {"fused_block": False, "use_pallas": True}),
-                            ("plain", {"fused_block": False, "use_pallas": False})]:
+        log(f"[serving] {N_CASES} preprocessed cases {SERVING_SHAPE}")
+        runs, counts = {}, {}
+        for name, gates in GATES:
             cfg = json.loads(json.dumps(SERVING))
             cfg["tpu"].update(gates)
             block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
@@ -521,21 +772,34 @@ def main(argv=None) -> int:
                                 norm=norm_kernel.launches)
             runs[name] = maps
             log(f"  {name}: {vps:.3f} vol/s on {smi}; launches {counts[name]}")
-        if counts["fused_block"]["block"] == 0 or counts["fused_block"]["plain_block"] != 0:
-            raise AssertionError(f"fused_block run did not go through the block kernel: "
-                                 f"{counts['fused_block']}")
-        if counts["use_pallas"]["norm"] == 0:
-            raise AssertionError(f"use_pallas run did not go through the norm kernel: "
-                                 f"{counts['use_pallas']}")
-        if counts["plain"] != dict(block=0, plain_block=0, norm=0):
-            raise AssertionError(f"plain run launched a kernel: {counts['plain']}")
-        for name in ("fused_block", "use_pallas"):
-            err = max(float(np.abs(runs[name][c] - runs["plain"][c]).max()) for c in runs["plain"])
-            log(f"  {name} vs plain model: max abs prob diff {err:.3e} (bar 5e-2)")
-            if not err <= 5e-2:
-                raise AssertionError(f"{name} prob maps differ from the plain model by {err}")
+        check_gates(counts, "serving run")
+        check_against_plain(runs, "serving")
 
-    # 6. results
+        # 7. the fused per-volume pipeline on the raw volumes
+        log(f"[fused pipeline] {N_CASES} raw volumes {SERVING_SHAPE}, uint16 upload and fetch, "
+            f"sparse fetch, patch_batch {SERVING['tpu']['patch_batch']}")
+        fused_runs, fused_counts = {}, {}
+        for name, gates in GATES:
+            cfg = Config.from_dict(SERVING)
+            for k, v in gates.items():
+                setattr(cfg.tpu, k, v)
+            block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
+            vps, peak, maps, preps, pipe = fused_run(
+                cfg, state, raw_paths, profile=args.profile and name == "fused_block")
+            fused_counts[name] = dict(block=block_kernel.launches,
+                                      plain_block=block_kernel.plain_calls,
+                                      norm=norm_kernel.launches)
+            check_zero_outside_body(cfg, maps, preps)
+            fused_runs[name] = maps
+            log(f"  {name}: {vps:.3f} vol/s on {smi}; peak device memory {peak / 2**30:.2f} GiB; "
+                f"launches {fused_counts[name]}; maps 0 outside the body mask")
+            if name == "fused_block":
+                fused_phases(pipe, raw_paths[0])
+            del preps, pipe
+        check_gates(fused_counts, "fused pipeline run")
+        check_against_plain(fused_runs, "fused pipeline")
+
+    # 8. results
     def total(rows, key, weights=None):
         return sum(r[key] * (weights or {}).get(k, 1) for k, r in rows.items())
 
@@ -548,7 +812,8 @@ def main(argv=None) -> int:
             "name": "residual_block", "route": "cuda",
             "source": "light_unet_tpu_torch/csrc/residual_block.cu",
             "replaces": "light_unet_tpu/ops/pallas_block.py:417",
-            "launches": counts["fused_block"]["block"], "max_abs_err": block_err,
+            "launches": counts["fused_block"]["block"] + fused_counts["fused_block"]["block"],
+            "max_abs_err": block_err,
             "ms": total(block_rows, "ms"), "plain_ms": total(block_rows, "plain_ms"),
             "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in block_rows.values()),
             "bound_by": "bytes" if blk_bytes >= blk_ops else "operations",
@@ -558,7 +823,8 @@ def main(argv=None) -> int:
             "name": "instance_norm_leaky", "route": "cuda",
             "source": "light_unet_tpu_torch/csrc/instance_norm.cu",
             "replaces": "light_unet_tpu/ops/pallas_kernels.py:118",
-            "launches": counts["use_pallas"]["norm"], "max_abs_err": norm_err[torch.bfloat16],
+            "launches": counts["use_pallas"]["norm"] + fused_counts["use_pallas"]["norm"],
+            "max_abs_err": norm_err[torch.bfloat16],
             "ms": total(norm_rows, "ms", norm_calls),
             "plain_ms": total(norm_rows, "plain_ms", norm_calls),
             "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) * norm_calls[k]

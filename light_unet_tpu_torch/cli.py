@@ -1,8 +1,13 @@
 """Pipeline CLI of the PyTorch port (port of ``light_unet_tpu/cli.py:94-200``).
 
-Same flags as the JAX package's CLI.  Only ``--mode inference`` is ported;
-the other stages raise ``NotImplementedError`` naming their ROADMAP item.
+Same flags as the JAX package's CLI, and the same directory tree.  Ported
+stages: ``--mode split``, ``--mode preprocess`` and ``--mode inference``;
+the others raise ``NotImplementedError`` naming their ROADMAP item.
+``--device`` (default ``cuda``) is where preprocess and inference run.
 
+    python -m light_unet_tpu_torch.cli --mode split --data_root data/raw --splits_dir data/splits
+    python -m light_unet_tpu_torch.cli --mode preprocess --split val --data_root data/raw \\
+        --processed_dir data/processed --splits_dir data/splits
     python -m light_unet_tpu_torch.cli --mode inference --config configs/unet_fl70.yaml \\
         --model_path models/best_model.pth --processed_dir data/processed
 """
@@ -16,11 +21,9 @@ from pathlib import Path
 from light_unet_tpu_torch.config import Config
 
 _NOT_PORTED = {
-    "split": "ROADMAP queue 1, item 9 (CLI)",
-    "preprocess": "ROADMAP queue 1, item 6 (preprocess stage)",
     "train": "ROADMAP queue 1, item 8 (training)",
     "evaluate": "ROADMAP queue 1, item 7 (evaluation)",
-    "all": "ROADMAP queue 1, items 6-9",
+    "all": "ROADMAP queue 1, items 7-9 (evaluation, training, the rest of the CLI)",
     "bench": "ROADMAP queue 1 (a benchmark of the port is later work)",
 }
 
@@ -75,11 +78,42 @@ def _load_config(args) -> Config:
 
 def run(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mode != "inference":
+    if args.mode in _NOT_PORTED:
         raise NotImplementedError(
             f"--mode {args.mode} is not ported to PyTorch yet: {_NOT_PORTED[args.mode]}")
     config = _load_config(args)
     workdir = Path(args.workdir)
+    # the standard directory tree (main.py:71-77 of the reference)
+    for d in (args.data_root, args.processed_dir, args.splits_dir, workdir / "models/checkpoints",
+              workdir / "logs", workdir / "inference/prob_maps", workdir / "inference/bboxes"):
+        Path(d).mkdir(parents=True, exist_ok=True)
+
+    if args.mode == "split":
+        if args.skip_split:
+            print("Skipping data splitting")
+            return 0
+        from light_unet_tpu_torch.pipeline.split import split_dataset
+
+        sr = config.data.split_ratio
+        split_dataset(
+            args.data_root,
+            args.output_dir or args.splits_dir,
+            train_ratio=args.train_ratio if args.train_ratio is not None else sr.train,
+            val_ratio=args.val_ratio if args.val_ratio is not None else sr.val,
+            test_ratio=args.test_ratio if args.test_ratio is not None else sr.test,
+            seed=config.experiment.seed,
+        )
+        return 0
+    if args.mode == "preprocess":
+        if args.skip_preprocess:
+            print("Skipping preprocessing")
+            return 0
+        from light_unet_tpu_torch.pipeline.preprocess import run_preprocess
+
+        run_preprocess(config, args.data_root, args.processed_dir, args.splits_dir,
+                       split=args.split, allow_test=args.allow_test, device=args.device)
+        return 0
+
     from light_unet_tpu_torch.core.inferencer import Inferencer
 
     model_path = Path(args.model_path)

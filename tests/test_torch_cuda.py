@@ -1,17 +1,21 @@
 """PyTorch port on the card: each CUDA kernel against its plain version at
-small shapes.  Skips without a GPU.  A GPU machine need not have JAX, which
+small shapes, and the body mask and the fused per-volume pipeline against
+the same code on the CPU.  Skips without a GPU.  A GPU machine need not have JAX, which
 ``tests/conftest.py`` imports, so run it there without the conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
-from light_unet_tpu_torch.config import ModelConfig
+from light_unet_tpu_torch.config import Config, ModelConfig
 from light_unet_tpu_torch.models.fused_forward import make_fused_apply
 from light_unet_tpu_torch.models.unet3d import ResidualBlock, build_model, init_weights
-from light_unet_tpu_torch.ops import block_kernel, norm_kernel
+from light_unet_tpu_torch.ops import block_kernel, ccl, norm_kernel
+from light_unet_tpu_torch.ops.fused import FusedVolumePipeline, HostPrefetch, normalize_and_body_mask
+from light_unet_tpu_torch.ops.sparse_fetch import SparsePack
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -192,3 +196,67 @@ def test_block_plan_fits(gen):
         for dtype in (torch.float32, torch.bfloat16):
             plan = block_kernel.kernel_plan(shape, c, dtype)
             assert all(p[0] > 0 and p[3] > 0 for p in plan.values()), (shape, c, plan)
+
+
+def _phantom(shape=(40, 36, 50), seed=0):
+    """A raw SUV-like volume: a body ellipsoid over air, hot spheres."""
+    rng = np.random.default_rng(seed)
+    zz, yy, xx = np.ogrid[: shape[0], : shape[1], : shape[2]]
+    c = [s / 2 for s in shape]
+    body = sum((g - m) ** 2 / (0.42 * s) ** 2 for g, m, s in zip((zz, yy, xx), c, shape)) <= 1.0
+    img = body * (1.5 + 0.5 * rng.random(shape)) + 0.02 * rng.random(shape)
+    for _ in range(3):
+        p = [int(rng.integers(int(s * 0.35), int(s * 0.65))) for s in shape]
+        img[(zz - p[0]) ** 2 + (yy - p[1]) ** 2 + (xx - p[2]) ** 2 <= 9] = 8.0
+    return img.astype(np.float32)
+
+
+@pytest.mark.parametrize("z_bucket", [1, 16])
+def test_body_mask_on_the_card_equals_the_cpu(gen, z_bucket):
+    """normalize_and_body_mask on cuda and on cpu: masks, counts and bboxes
+    equal, normalized volumes within 1e-6."""
+    cfg = Config()
+    img = _phantom()
+    got = normalize_and_body_mask(img, cfg.data.intensity, cfg.data.body_mask, z_bucket, "cuda")
+    want = normalize_and_body_mask(img, cfg.data.intensity, cfg.data.body_mask, z_bucket, "cpu")
+    assert np.abs(got[0] - want[0]).max() <= 1e-6
+    assert np.array_equal(got[1], want[1]) and got[1].sum() > 0
+    assert got[2] == want[2] and got[3] == want[3]
+
+
+def test_largest_component_on_the_card_equals_the_cpu(gen):
+    mask = (torch.rand((30, 33, 37), generator=gen, device="cuda") < 0.35).float()
+    got = ccl.keep_largest_component(mask)
+    assert torch.equal(got.cpu(), ccl.keep_largest_component(mask.cpu()))
+    assert torch.equal(ccl.label_propagate(mask).cpu(), ccl.label_propagate(mask.cpu()))
+
+
+def _fused_pipeline(device, **tpu):
+    cfg = Config.from_dict({"data": {"patch_size": [16, 16, 16]},
+                            "model": {"encoder_channels": [4, 8, 16, 32]},
+                            "tpu": dict({"z_bucket": 16}, **tpu)})
+    model = init_weights(build_model(cfg.model, torch.float32, inference=True),
+                         torch.Generator().manual_seed(3)).to(device).eval()
+    return FusedVolumePipeline(model, cfg, patch_batch=8, device=device)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("fetch", ["float32", "uint16"])
+def test_fused_pipeline_on_the_card_equals_the_cpu(gen, sparse, fetch):
+    """uint16 upload, dense or sparse fetch behind the host prefetch: the
+    card's map equals the CPU's within 1e-5 (plus one level when quantized),
+    zero on the same voxels; a sparse dispatch prefetches only its count."""
+    img = _phantom()
+    card = _fused_pipeline("cuda", sparse_fetch=sparse, fetch_dtype=fetch)
+    dispatched = card.dispatch(img)
+    assert isinstance(dispatched[0], HostPrefetch)
+    assert dispatched[0].host.is_pinned()
+    if sparse:
+        assert isinstance(dispatched[0].out, SparsePack) and dispatched[0].host.numel() == 1
+    got = card.fetch(dispatched)
+    want = _fused_pipeline("cpu", sparse_fetch=sparse, fetch_dtype=fetch)(img)
+    bar = 1e-5 + (1.0 / 65535 if fetch == "uint16" else 0.0)
+    assert got.shape == img.shape and np.abs(got - want).max() <= bar
+    assert np.array_equal(got == 0, want == 0) and 0 < (got == 0).mean() < 1
+    card.host_prefetch = False
+    assert np.array_equal(card(img), got)

@@ -109,7 +109,7 @@ def test_no_silent_cpu(workspace, monkeypatch):
         Inferencer(CFG, ckpt)
 
 
-@pytest.mark.parametrize("mode", ["train", "preprocess", "evaluate", "split", "all"])
+@pytest.mark.parametrize("mode", ["train", "evaluate", "all"])
 def test_cli_unported_modes_name_the_roadmap(mode):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         cli.run(["--mode", mode])
