@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # the full check (one card, about 5-10 minutes)
     python3 chip_smoke.py --quick    # build + kernel checks at a small batch only
-    python3 chip_smoke.py --profile  # also trace the fused_block serving and fused-pipeline runs
+    python3 chip_smoke.py --profile  # also trace fused_block serving, the fused pipeline, 20 training steps
 
 Phases:
 1. device line: ``nvidia-smi`` name and power limit, torch and CUDA versions;
@@ -43,9 +43,30 @@ Phases:
    ``body_mask_core`` of the same dequantized volume on the card is 0;
    logged: vol/s, peak device memory, and under ``fused_block`` one
    volume's time split serially (decode, prepare, dispatch, fetch);
-8. one JSON line of per-kernel numbers (launches summed over the serving
-   and fused-pipeline runs under the kernel's gate), the ``nvidia-smi``
-   line, and last ``{"ok": true, "device": {...}}``.
+8. the train stage: the port ``Trainer`` at the full ``configs/unet_fl70.yaml``
+   model (bf16, batch 2, 48^3, device corpus, ``steps_per_dispatch`` 4,
+   separable augmentation, augmentation and dropout on, ``tpu.use_pallas``
+   on) for 2 epochs on 2 of the processed phantoms, validating on the other
+   2; checks: finite losses, parameters changed, checkpoints and
+   ``best_model.pth`` written, no norm- or block-kernel launch inside the
+   training steps and norm-kernel launches in validation, ``resume`` in a
+   fresh trainer restores the epoch and the optimizer step, and one float32
+   step (augmentation and dropout off, TF32 off) on the card within 1e-4
+   relative of the same step on the CPU; logged: ms per step, steps/s,
+   peak device memory, corpus bytes, epoch losses, skipped steps,
+   validation seconds per case, device-sweep / escalated / host counts;
+9. the evaluate stage: the trained ``best_model.pth`` serves the 2
+   validation phantoms (``Inferencer``, ``fused_block``), then
+   ``run_evaluate`` on the card; each case's per-threshold counts equal the
+   host path's (``use_device=False``) on the same maps, DSC within 1e-9,
+   and so do those of a device sweep with 16x the component cap on every
+   served map (a briefly trained model's maps are speckled); logged:
+   evaluate seconds per case, how many cases the stage's own sweep took,
+   and device-sweep ms per threshold;
+10. one JSON line of per-kernel numbers (launches summed over the runs under
+   the kernel's gate: serving, fused pipeline, the training phase's
+   validation and the evaluate phase's serving, each logged), the
+   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Float32 comparisons run with TF32 off.
 """
@@ -686,11 +707,276 @@ def serve(config: dict, model_path: Path, data_dir: Path, split: Path, workdir: 
     return N_CASES / seconds, maps
 
 
+def train_config(data_dir: Path, splits: Path, **over) -> dict:
+    """``configs/unet_fl70.yaml`` (the port's defaults are that file) with the
+    smoke's paths, 2 epochs, a checkpoint every epoch, the norm kernel's gate
+    on, and the JAX package's convergence-test rate (3e-3, no warmup:
+    ``tests/integration/test_convergence.py``) so that 2 short epochs move
+    the model."""
+    cfg = {
+        "data_dir": str(data_dir), "splits_dir": str(splits),
+        "training": {"epochs": 2, "learning_rate": 3e-3, "use_warmup": False},
+        "output": {"save_every_n_epochs": 1},
+        "tpu": {"use_pallas": True, "fused_block": False},
+    }
+    for key, value in over.items():
+        cfg.setdefault(key, {}).update(value)
+    return cfg
+
+
+def write_splits(splits: Path, train: list, val: list) -> None:
+    splits.mkdir(parents=True, exist_ok=True)
+    for name, ids in (("train", train), ("val", val), ("test", [])):
+        (splits / f"{name}_list.txt").write_text("".join(f"{i}\n" for i in ids))
+
+
+def first_step_agreement(data_dir: Path, splits: Path, workdir: Path) -> float:
+    """One float32 training step (augmentation and dropout off, TF32 off) on
+    the card and on the CPU from the same weights and corners; returns the
+    relative loss difference."""
+    import torch
+
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.core.trainer import Trainer
+
+    off = {k: {"enabled": False} for k in ("random_flip", "random_rotation", "random_scale",
+                                          "intensity_shift", "gaussian_noise")}
+    cfg = train_config(data_dir, splits, tpu={"compute_dtype": "float32", "use_pallas": False},
+                       model={"use_dropout": False}, augmentation=off)
+    card = Trainer(Config.from_dict(cfg), workdir=str(workdir / "card"), device="cuda")
+    cpu = Trainer(Config.from_dict(cfg), workdir=str(workdir / "cpu"), device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    corners = card.train_loader.sample_corners()
+    for t in (card, cpu):
+        t.model.train()
+        t._set_lr(t.scheduler.current_lr())
+    t0 = time.perf_counter()
+    loss_card = float(card._step_on_batch(corners))
+    t1 = time.perf_counter()
+    loss_cpu = float(cpu._step_on_batch(corners))
+    t2 = time.perf_counter()
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    log(f"  first float32 step: card loss {loss_card:.8f} ({(t1 - t0) * 1e3:.0f} ms with its "
+        f"first launches), CPU loss {loss_cpu:.8f} ({t2 - t1:.1f} s), relative diff {rel:.2e} "
+        f"(bar 1e-4)")
+    if not (np.isfinite(loss_card) and rel <= 1e-4):
+        raise AssertionError(f"card and CPU first steps differ: {loss_card} vs {loss_cpu}")
+    for t in (card, cpu):
+        t.writer.close()
+    return rel
+
+
+def profile_steps(trainer, chains: int = 5) -> None:
+    """torch.profiler over ``chains`` K-step dispatch units of training
+    (after the run, on the trained state): device busy share and device time
+    by kernel."""
+    import torch
+
+    import itertools
+
+    units = list(itertools.islice(trainer._dispatch_units(trainer.train_loader), chains + 1))
+    trainer.model.train()
+    trainer._step_on_batch(units.pop(0))
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    steps = 0
+    with prof:
+        t0 = time.perf_counter()
+        for unit in units:
+            trainer._step_on_batch(unit)
+            steps += trainer._unit_steps(unit)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    trainer._epoch_oks.clear()
+    log(f"  [profile] {steps} training steps: {seconds / steps * 1e3:.2f} ms/step profiled")
+    report_profile(prof, seconds)
+
+
+def train_phase(tmp: Path, data_dir: Path, ids: list, smi: str, profile: bool = False) -> tuple:
+    """The port ``Trainer`` on the card; returns (best model path, val split,
+    norm-kernel launches in validation)."""
+    import torch
+
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.core.trainer import Trainer
+    from light_unet_tpu_torch.ops import block_kernel, norm_kernel
+
+    splits, work = tmp / "train_splits", tmp / "train"
+    write_splits(splits, ids[:2], ids[2:])
+    cfg = Config.from_dict(train_config(data_dir, splits))
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, workdir=str(work), device="cuda")
+    steps = len(trainer.train_loader)
+    log(f"  trainer built in {time.perf_counter() - t0:.1f} s: {steps} steps per epoch (batch "
+        f"{cfg.training.batch_size}, {len(trainer.sampler)} pre-sampled locations in "
+        f"{len(trainer.sampler.cases)} cases), corpus {trainer.corpus.per_chip_bytes / 2**20:.1f} MiB "
+        f"on the card, K = {trainer._chain} steps per dispatch")
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    launches = {"train": dict(norm=0, block=0, plain_block=0), "val": dict(norm=0, block=0)}
+    epoch_s, val_s = [], []
+    train_epoch, validate = trainer.train_epoch, trainer.validate
+
+    def counted(fn, where, seconds):
+        def run(epoch):
+            torch.cuda.synchronize()
+            n = (norm_kernel.launches, block_kernel.launches, block_kernel.plain_calls)
+            t = time.perf_counter()
+            out = fn(epoch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+            launches[where]["norm"] += norm_kernel.launches - n[0]
+            launches[where]["block"] += block_kernel.launches - n[1]
+            if where == "train":
+                launches[where]["plain_block"] += block_kernel.plain_calls - n[2]
+            return out
+        return run
+
+    trainer.train_epoch = counted(train_epoch, "train", epoch_s)
+    trainer.validate = counted(validate, "val", val_s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
+    result = trainer.train()
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    for e, (es, vs) in enumerate(zip(epoch_s, val_s)):
+        fb = trainer.val_fallback_history[e]
+        log(f"  epoch {e + 1}: train {es:.2f} s = {es / steps * 1e3:.2f} ms/step "
+            f"({steps / es:.1f} steps/s); loss {hist['train_loss'][e]:.5f}; validation "
+            f"{vs:.2f} s = {vs / fb['n_cases']:.2f} s/case (device sweep {fb['device']}, "
+            f"escalated {fb['escalated']}, host {fb['host']}); val loss {hist['val_loss'][e]:.5f}, "
+            f"recall {hist['val_recall'][e]:.3f}, dsc {hist['val_dsc'][e]:.4f}, best threshold "
+            f"{hist['val_best_threshold'][e]}")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB; skipped steps "
+        f"{result['skipped_steps_total']}; launches in training steps {launches['train']}, "
+        f"in validation {launches['val']} on {smi}")
+    if not np.isfinite(hist["train_loss"]).all() or len(hist["train_loss"]) != 2:
+        raise AssertionError(f"training losses not finite: {hist['train_loss']}")
+    if launches["train"] != dict(norm=0, block=0, plain_block=0):
+        raise AssertionError(f"a fused kernel ran inside the training steps: {launches['train']}")
+    if launches["val"]["norm"] == 0:
+        raise AssertionError("validation did not go through the norm kernel")
+    changed = sum(not torch.equal(v, trainer.model.state_dict()[k]) for k, v in before.items())
+    if changed < len(before) // 2:
+        raise AssertionError(f"only {changed}/{len(before)} parameter tensors changed")
+    ckpts = sorted(p.name for p in (work / "models/checkpoints").glob("*.ckpt"))
+    best = work / cfg.output.best_model_path
+    if ckpts != ["checkpoint_epoch_001.ckpt", "checkpoint_epoch_002.ckpt"] or not best.exists():
+        raise AssertionError(f"checkpoints {ckpts}, best model {best.exists()}")
+    if not (work / "logs/training_history.json").exists():
+        raise AssertionError("no training_history.json")
+    log(f"  {changed}/{len(before)} parameter tensors changed; checkpoints {ckpts}; "
+        f"{cfg.output.best_model_path} from epoch {result['best_epoch'] + 1}")
+
+    fresh = Trainer(cfg, workdir=str(work), device="cuda")
+    if not fresh.resume() or fresh.start_epoch != 2 or int(fresh.opt.count) != int(trainer.opt.count):
+        raise AssertionError(f"resume: epoch {fresh.start_epoch}, step {int(fresh.opt.count)} vs "
+                             f"{int(trainer.opt.count)}")
+    log(f"  resume: a fresh trainer continues at epoch {fresh.start_epoch + 1} with the optimizer "
+        f"at step {int(fresh.opt.count)}")
+    fresh.writer.close()
+    if profile:
+        profile_steps(trainer)
+    del trainer, fresh
+    first_step_agreement(data_dir, splits, tmp / "first_step")
+    torch.cuda.empty_cache()
+    return best, splits / "val_list.txt", launches["val"]["norm"]
+
+
+def evaluate_phase(tmp: Path, data_dir: Path, best: Path, split: Path, smi: str) -> dict:
+    """Serve the validation phantoms with the trained model, ``run_evaluate``
+    on the card, each case held against the host path; returns the serving
+    run's kernel launches."""
+    import torch
+
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.ops import block_kernel, norm_kernel
+    from light_unet_tpu_torch.ops.val_metrics import DeviceValidationSweep
+    from light_unet_tpu_torch.core.inferencer import Inferencer
+    from light_unet_tpu_torch.pipeline.evaluate import (
+        _device_case_results,
+        evaluate_case,
+        run_evaluate,
+    )
+    from light_unet_tpu_torch.utils import nifti
+
+    work = tmp / "evaluate"
+    cases = split.read_text().split()
+    block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
+    inf = Inferencer(SERVING, best, workdir=str(work), device="cuda")
+    result = inf.infer_split(split, data_dir)
+    served = dict(block=block_kernel.launches, plain_block=block_kernel.plain_calls,
+                  norm=norm_kernel.launches)
+    if result["failed"] or result["successful"] != len(cases) or served["block"] == 0:
+        raise AssertionError(f"serving the trained model failed: {result}, launches {served}")
+    cfg = Config.from_dict(SERVING)
+    maps = work / "inference/prob_maps"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = run_evaluate(cfg, split, maps, data_dir, work / "eval", device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    detailed = json.loads((work / "eval/detailed_results.json").read_text())["per_case"]
+    thresholds = sorted(summary)
+    spacing = tuple(cfg.data.spacing.target)
+    for cid in cases:
+        host = evaluate_case(cid, maps, data_dir, thresholds, spacing=spacing, use_device=False)
+        for t in thresholds:
+            dev = detailed[cid][str(t)]
+            if any(dev[k] != host[t][k] for k in ("tp", "fp", "fn")) or not (
+                    abs(dev["dsc"] - host[t]["dsc"]) <= 1e-9):
+                raise AssertionError(f"case {cid} threshold {t}: device {dev} vs host {host[t]}")
+    log(f"  served {len(cases)} cases with the trained model (launches {served}); run_evaluate "
+        f"on the card {seconds / len(cases):.2f} s per case (decode, upload, sweep or host "
+        f"path, matching); every case's counts equal the host path's, DSC within 1e-9")
+    # the device sweep engine on every served map, against the host path: a
+    # cap of 16x the default (the trainer's escalation tier is 4x) holds the
+    # speckled maps of a briefly trained model, which the evaluate stage's
+    # default cap sends to the host path
+    sweep = DeviceValidationSweep(thresholds, max_components=16 * 4096, device="cuda")
+    took = 0
+    for cid in cases:
+        prob_map = nifti.load(maps / f"{cid}_prob.nii.gz").get_fdata()
+        label = nifti.load(data_dir / f"labels/{cid}.nii.gz").get_fdata()
+        dev = _device_case_results(prob_map, label, thresholds, spacing, sweep)
+        if dev is None:
+            raise AssertionError(f"case {cid}: the 16x-cap sweep fell back "
+                                 f"({sweep.last_overflow_reason})")
+        host = evaluate_case(cid, maps, data_dir, thresholds, spacing=spacing, use_device=False)
+        for t in thresholds:
+            if any(dev[t][k] != host[t][k] for k in ("tp", "fp", "fn")) or not (
+                    abs(dev[t]["dsc"] - host[t]["dsc"]) <= 1e-9):
+                raise AssertionError(f"case {cid} threshold {t}: device {dev[t]} vs host {host[t]}")
+        took += detailed[cid] == {str(t): dev[t] for t in thresholds}
+    log(f"  the device sweep (cap {sweep.max_components}) on every served map equals the host "
+        f"path (counts, DSC within 1e-9); run_evaluate's default-cap sweep took {took} of "
+        f"{len(cases)} cases on the device, the rest on the host path")
+    # the sweep alone on one case's map, per threshold
+    cid = cases[0]
+    prob = torch.from_numpy(nifti.load(maps / f"{cid}_prob.nii.gz").get_fdata(np.float32)).cuda()
+    label = nifti.load(data_dir / f"labels/{cid}.nii.gz").get_fdata()
+    sweep.add_case(cid, label)
+    res = sweep.case_metrics(cid, prob, spacing)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        res = sweep.case_metrics(cid, prob, spacing)
+    ms = (time.perf_counter() - t0) / 3 / len(thresholds) * 1e3
+    components = [r["tp"] + r["fp"] for r in res]
+    log(f"  device sweep on case {cid} {tuple(prob.shape)}: {ms:.1f} ms per threshold "
+        f"({len(thresholds)} thresholds, tables to the host and matching included; predicted "
+        f"components per threshold {components}) on {smi}; default threshold: recall "
+        f"{summary[cfg.validation.default_threshold]['recall']:.3f}, "
+        f"dsc {summary[cfg.validation.default_threshold]['dsc']:.4f}")
+    return served
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="trace the fused_block serving and fused-pipeline runs with "
-                        "torch.profiler")
+                        help="trace the fused_block serving and fused-pipeline runs and 20 "
+                        "training steps with torch.profiler")
     parser.add_argument("--quick", action="store_true",
                         help="build and check the kernels at a small batch; skip timing and serving")
     args = parser.parse_args(argv)
@@ -799,7 +1085,18 @@ def main(argv=None) -> int:
         check_gates(fused_counts, "fused pipeline run")
         check_against_plain(fused_runs, "fused pipeline")
 
-    # 8. results
+        # 8. the train stage on the processed phantoms
+        ids = [p.name.split("_")[0] for p in raw_paths]
+        log(f"[train] the port Trainer, configs/unet_fl70.yaml model, bf16, batch 2, 48^3, "
+            f"train {ids[:2]}, validate {ids[2:]}, 2 epochs, use_pallas on")
+        best, val_split, train_val_norm = train_phase(tmp, data_dir, ids, smi, profile=args.profile)
+
+        # 9. the evaluate stage on the trained model's maps
+        log(f"[evaluate] {val_split.read_text().split()} served with the trained model, "
+            f"then run_evaluate on the card")
+        eval_counts = evaluate_phase(tmp, data_dir, best, val_split, smi)
+
+    # 10. results
     def total(rows, key, weights=None):
         return sum(r[key] * (weights or {}).get(k, 1) for k, r in rows.items())
 
@@ -812,7 +1109,8 @@ def main(argv=None) -> int:
             "name": "residual_block", "route": "cuda",
             "source": "light_unet_tpu_torch/csrc/residual_block.cu",
             "replaces": "light_unet_tpu/ops/pallas_block.py:417",
-            "launches": counts["fused_block"]["block"] + fused_counts["fused_block"]["block"],
+            "launches": (counts["fused_block"]["block"] + fused_counts["fused_block"]["block"]
+                         + eval_counts["block"]),
             "max_abs_err": block_err,
             "ms": total(block_rows, "ms"), "plain_ms": total(block_rows, "plain_ms"),
             "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in block_rows.values()),
@@ -823,7 +1121,8 @@ def main(argv=None) -> int:
             "name": "instance_norm_leaky", "route": "cuda",
             "source": "light_unet_tpu_torch/csrc/instance_norm.cu",
             "replaces": "light_unet_tpu/ops/pallas_kernels.py:118",
-            "launches": counts["use_pallas"]["norm"] + fused_counts["use_pallas"]["norm"],
+            "launches": (counts["use_pallas"]["norm"] + fused_counts["use_pallas"]["norm"]
+                         + train_val_norm),
             "max_abs_err": norm_err[torch.bfloat16],
             "ms": total(norm_rows, "ms", norm_calls),
             "plain_ms": total(norm_rows, "plain_ms", norm_calls),
@@ -833,6 +1132,11 @@ def main(argv=None) -> int:
             "library_ms": total(norm_rows, "library_ms", norm_calls),
         },
     ]
+    log(f"[result] launches: residual_block = serving {counts['fused_block']['block']} + fused "
+        f"pipeline {fused_counts['fused_block']['block']} + evaluate-phase serving "
+        f"{eval_counts['block']}; instance_norm_leaky = serving {counts['use_pallas']['norm']} + "
+        f"fused pipeline {fused_counts['use_pallas']['norm']} + training-phase validation "
+        f"{train_val_norm}")
     log("[result] per-kernel times are sums over one 192-patch bf16 forward; "
         f"instance_norm_leaky device time {total(norm_rows, 'device_ms', norm_calls):.4f} ms "
         f"(CUDA events {total(norm_rows, 'ms', norm_calls):.4f} ms)")

@@ -1,15 +1,19 @@
 """Pipeline CLI of the PyTorch port (port of ``light_unet_tpu/cli.py:94-200``).
 
-Same flags as the JAX package's CLI, and the same directory tree.  Ported
-stages: ``--mode split``, ``--mode preprocess`` and ``--mode inference``;
-the others raise ``NotImplementedError`` naming their ROADMAP item.
-``--device`` (default ``cuda``) is where preprocess and inference run.
+Same flags as the JAX package's CLI, and the same directory tree.  Stages:
+``split``, ``preprocess``, ``train`` (``--resume`` continues from the latest
+checkpoint), ``inference``, ``evaluate``, and ``all`` for the five in that
+order; ``bench`` raises ``NotImplementedError`` naming its ROADMAP item.
+``--device`` (default ``cuda``) is where every stage runs.
 
     python -m light_unet_tpu_torch.cli --mode split --data_root data/raw --splits_dir data/splits
     python -m light_unet_tpu_torch.cli --mode preprocess --split val --data_root data/raw \\
         --processed_dir data/processed --splits_dir data/splits
+    python -m light_unet_tpu_torch.cli --mode train --config configs/unet_fl70.yaml \\
+        --processed_dir data/processed --splits_dir data/splits
     python -m light_unet_tpu_torch.cli --mode inference --config configs/unet_fl70.yaml \\
         --model_path models/best_model.pth --processed_dir data/processed
+    python -m light_unet_tpu_torch.cli --mode evaluate --processed_dir data/processed
 """
 
 from __future__ import annotations
@@ -21,9 +25,6 @@ from pathlib import Path
 from light_unet_tpu_torch.config import Config
 
 _NOT_PORTED = {
-    "train": "ROADMAP queue 1, item 8 (training)",
-    "evaluate": "ROADMAP queue 1, item 7 (evaluation)",
-    "all": "ROADMAP queue 1, items 7-9 (evaluation, training, the rest of the CLI)",
     "bench": "ROADMAP queue 1 (a benchmark of the port is later work)",
 }
 
@@ -88,7 +89,17 @@ def run(argv=None) -> int:
               workdir / "logs", workdir / "inference/prob_maps", workdir / "inference/bboxes"):
         Path(d).mkdir(parents=True, exist_ok=True)
 
-    if args.mode == "split":
+    stages = (["split", "preprocess", "train", "inference", "evaluate"] if args.mode == "all"
+              else [args.mode])
+    split_file = args.split_file or str(Path(args.splits_dir) / "val_list.txt")
+    rc = 0
+    for stage in stages:
+        rc = max(rc, _run_stage(stage, args, config, workdir, split_file))
+    return rc
+
+
+def _run_stage(stage: str, args, config: Config, workdir: Path, split_file: str) -> int:
+    if stage == "split":
         if args.skip_split:
             print("Skipping data splitting")
             return 0
@@ -104,7 +115,7 @@ def run(argv=None) -> int:
             seed=config.experiment.seed,
         )
         return 0
-    if args.mode == "preprocess":
+    if stage == "preprocess":
         if args.skip_preprocess:
             print("Skipping preprocessing")
             return 0
@@ -112,6 +123,21 @@ def run(argv=None) -> int:
 
         run_preprocess(config, args.data_root, args.processed_dir, args.splits_dir,
                        split=args.split, allow_test=args.allow_test, device=args.device)
+        return 0
+    if stage == "train":
+        from light_unet_tpu_torch.core.trainer import Trainer
+
+        trainer = Trainer(config, workdir=args.workdir, device=args.device)
+        if args.resume:
+            trainer.resume()
+        trainer.train()
+        return 0
+    if stage == "evaluate":
+        from light_unet_tpu_torch.pipeline.evaluate import run_evaluate
+
+        run_evaluate(config, split_file, args.prob_maps_dir or workdir / "inference/prob_maps",
+                     args.processed_dir, args.output_dir or workdir / "inference",
+                     device=args.device)
         return 0
 
     from light_unet_tpu_torch.core.inferencer import Inferencer
@@ -125,10 +151,8 @@ def run(argv=None) -> int:
         ok = inferencer.infer_case(args.case_id, args.processed_dir,
                                    threshold=config.validation.default_threshold)
         return 0 if ok else 1
-    split_file = args.split_file or str(Path(args.splits_dir) / "val_list.txt")
     result = inferencer.infer_split(split_file, args.processed_dir)
     return 0 if not result["failed"] else 1
-
 
 if __name__ == "__main__":
     sys.exit(run())

@@ -31,8 +31,7 @@ from light_unet_tpu_torch.models.fused_forward import make_fused_apply
 from light_unet_tpu_torch.models.metrics import get_connected_components
 from light_unet_tpu_torch.models.unet3d import build_model
 from light_unet_tpu_torch.ops.components import bboxes_from_table, component_table_device
-from light_unet_tpu_torch.ops.sliding_window import SlidingWindowInferencer, _u16_to_f32
-from light_unet_tpu_torch.ops.sparse_fetch import SparsePack
+from light_unet_tpu_torch.ops.sliding_window import SlidingWindowInferencer, _u16_to_f32, on_device
 from light_unet_tpu_torch.utils import nifti
 from light_unet_tpu_torch.utils.device import resolve_device
 
@@ -123,6 +122,8 @@ class Inferencer:
             sparse_fetch_frac=cfg.tpu.sparse_fetch_frac,
             mesh_shape=cfg.tpu.mesh_shape,
             spatial_shard=bool(cfg.tpu.spatial_shard),
+            # the copy back starts at dispatch only when the map is saved
+            host_prefetch=self.save_prob_maps,
             device=self.device,
         )
 
@@ -162,8 +163,7 @@ class Inferencer:
         ``save_prob_maps=False``; write the bboxes JSON."""
         cfg = self.config
         prob_dev, vol_shape = dispatched
-        if isinstance(prob_dev, SparsePack):
-            prob_dev = prob_dev.dense  # the dense map stayed on the device
+        prob_dev = on_device(prob_dev)  # the dense map stays on the device
         if prob_dev.dtype == torch.int16:  # uint16 levels -> probabilities
             prob_dev = _u16_to_f32(prob_dev) * (1.0 / 65535.0)
         table, n_comp = component_table_device(prob_dev, threshold,

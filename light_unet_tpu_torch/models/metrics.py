@@ -1,15 +1,38 @@
-"""Host connected components (port of ``light_unet_tpu/models/metrics.py:41``).
+"""Lesion-detection metrics, host numpy/scipy (port of
+``light_unet_tpu/models/metrics.py``, the package's own copy).
 
-Used by the inferencer's host fallback when a volume has more candidate
-components than the device table holds.
+* voxel-wise DSC, micro (global voxel sums) and macro (mean per-case DSC);
+* connected components via 6-connectivity labeling with optional min-size
+  filtering and relabeling;
+* lesion matching: a prediction matches a target when IoU >= 0.1 **or**
+  center-of-mass distance <= 10 mm; greedy per-prediction best-IoU,
+  one-to-one;
+* aggregate lesion recall / precision / F1 and FP-per-case with per-case
+  spacing.
+
+Also the inferencer's host fallback for candidate extraction
+(``get_connected_components``) and the exact host path of validation and
+evaluation.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 from scipy import ndimage
+
+DEFAULT_SPACING = (4.0, 4.0, 4.0)
+SMOOTH = 1e-6
+
+
+def calculate_dsc(pred: np.ndarray, target: np.ndarray, smooth: float = SMOOTH) -> float:
+    """Dice similarity coefficient over flattened binary masks."""
+    p = np.ravel(pred)
+    t = np.ravel(target)
+    inter = float((p * t).sum())
+    denom = float(p.sum() + t.sum())
+    return (2.0 * inter + smooth) / (denom + smooth)
 
 
 def get_connected_components(mask: np.ndarray, min_size: int = 0) -> Tuple[np.ndarray, int]:
@@ -23,3 +46,336 @@ def get_connected_components(mask: np.ndarray, min_size: int = 0) -> Tuple[np.nd
         labeled[too_small[labeled]] = 0
         labeled, n = ndimage.label(labeled > 0)
     return labeled, n
+
+
+def calculate_iou(a: np.ndarray, b: np.ndarray) -> float:
+    inter = np.logical_and(a, b).sum()
+    union = np.logical_or(a, b).sum()
+    return float(inter) / float(union) if union > 0 else 0.0
+
+
+def _component_centers(labeled: np.ndarray, n: int) -> np.ndarray:
+    """Centers of mass for labels 1..n, shape [n, 3] (voxel coords)."""
+    if n == 0:
+        return np.zeros((0, 3), dtype=np.float64)
+    centers = ndimage.center_of_mass(
+        np.ones(labeled.shape, dtype=np.float32), labels=labeled, index=np.arange(1, n + 1)
+    )
+    return np.atleast_2d(np.asarray(centers, dtype=np.float64))[:, :3]
+
+
+def _pairwise_intersections(pred_labeled: np.ndarray, target_labeled: np.ndarray,
+                            n_pred: int, n_target: int) -> np.ndarray:
+    """Intersection voxel counts for every (pred, target) label pair via a
+    single bincount over encoded joint labels."""
+    pf = pred_labeled.ravel().astype(np.int64)
+    tf = target_labeled.ravel().astype(np.int64)
+    width = np.int64(n_target + 1)
+    joint = pf * width + tf
+    counts = np.bincount(joint, minlength=int((n_pred + 1) * width))
+    inter = counts.reshape(n_pred + 1, n_target + 1)
+    inter = inter.copy()
+    inter[0, :] = 0
+    inter[:, 0] = 0
+    return inter
+
+
+class _TargetComponents:
+    """Precomputed target-side matching inputs (labeled map, sizes, centers).
+
+    The validation threshold sweep calls the matcher once per threshold with
+    the SAME ground truth — labeling/centering the target each time is pure
+    waste (scipy label on a whole-body volume is ~0.3-0.5 s).  Build this
+    once per case and reuse it across thresholds."""
+
+    __slots__ = ("labeled", "n", "sizes", "centers")
+
+    def __init__(self, target_labeled: np.ndarray, n_target: int):
+        self.labeled = target_labeled
+        self.n = int(n_target)
+        self.sizes = np.bincount(target_labeled.ravel(), minlength=self.n + 1)
+        self.centers = _component_centers(target_labeled, self.n)
+
+
+def _match_against(
+    pred_labeled: np.ndarray,
+    n_pred: int,
+    target: _TargetComponents,
+    iou_threshold: float,
+    distance_threshold_mm: float,
+    spacing: Sequence[float],
+) -> Tuple[List[Tuple[int, int]], List[int], List[int]]:
+    """Core greedy matcher against precomputed target components."""
+    n_target = target.n
+    if n_pred == 0 or n_target == 0:
+        return [], list(range(1, n_pred + 1)), list(range(1, n_target + 1))
+
+    inter = _pairwise_intersections(pred_labeled, target.labeled, n_pred, n_target)
+    pred_sizes = np.bincount(pred_labeled.ravel(), minlength=n_pred + 1)
+    union = pred_sizes[:, None] + target.sizes[None, :] - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        iou = np.where(union > 0, inter / np.maximum(union, 1), 0.0)
+
+    sp = np.asarray(spacing, dtype=np.float64)
+    pc = _component_centers(pred_labeled, n_pred) * sp
+    tc = target.centers * sp
+    dist = np.linalg.norm(pc[:, None, :] - tc[None, :, :], axis=2)
+
+    matches: List[Tuple[int, int]] = []
+    target_taken = np.zeros(n_target, dtype=bool)
+    for pid in range(1, n_pred + 1):
+        iou_row = iou[pid, 1:]
+        ok = (~target_taken) & ((iou_row >= iou_threshold) | (dist[pid - 1] <= distance_threshold_mm))
+        if not ok.any():
+            continue
+        best = int(np.argmax(np.where(ok, iou_row, -np.inf)))
+        matches.append((pid, best + 1))
+        target_taken[best] = True
+
+    matched_pred = {p for p, _ in matches}
+    unmatched_pred = [i for i in range(1, n_pred + 1) if i not in matched_pred]
+    unmatched_target = [i + 1 for i in range(n_target) if not target_taken[i]]
+    return matches, unmatched_pred, unmatched_target
+
+
+def match_components(
+    pred_labeled: np.ndarray,
+    target_labeled: np.ndarray,
+    iou_threshold: float = 0.1,
+    distance_threshold_mm: float = 10.0,
+    spacing: Sequence[float] = DEFAULT_SPACING,
+) -> Tuple[List[Tuple[int, int]], List[int], List[int]]:
+    """Greedy one-to-one matching of predicted to target components.
+
+    Returns ``(matches, unmatched_pred_ids, unmatched_target_ids)`` with
+    1-based component ids.
+    """
+    n_pred = int(pred_labeled.max())
+    target = _TargetComponents(target_labeled, int(target_labeled.max()))
+    return _match_against(
+        pred_labeled, n_pred, target, iou_threshold, distance_threshold_mm, spacing
+    )
+
+
+def _squeeze_to_3d(x: np.ndarray) -> np.ndarray:
+    if x.ndim == 5:
+        x = x[:, 0]
+    if x.ndim == 4 and x.shape[0] == 1:
+        x = x[0]
+    return x
+
+
+def _prepare_target(target: np.ndarray, min_size_voxels: int = 0) -> _TargetComponents:
+    """Binarize + label + size/center the ground truth once (reusable across
+    a threshold sweep — the target does not depend on the threshold)."""
+    target = _squeeze_to_3d(np.asarray(target))
+    target_bin = (target >= 0.5).astype(np.int32)
+    target_labeled, n_target = get_connected_components(target_bin, min_size=min_size_voxels)
+    return _TargetComponents(target_labeled, n_target)
+
+
+def _lesion_metrics_prepared(
+    pred: np.ndarray,
+    target: _TargetComponents,
+    threshold: float,
+    min_size_voxels: int,
+    iou_threshold: float,
+    distance_threshold_mm: float,
+    spacing: Sequence[float],
+) -> Dict[str, float]:
+    pred = _squeeze_to_3d(np.asarray(pred))
+    pred_bin = (pred >= threshold).astype(np.int32)
+    pred_labeled, n_pred = get_connected_components(pred_bin, min_size=min_size_voxels)
+    n_target = target.n
+
+    if n_target == 0:
+        if n_pred == 0:
+            return {"recall": 1.0, "precision": 1.0, "f1": 1.0, "tp": 0, "fp": 0, "fn": 0}
+        return {"recall": 0.0, "precision": 0.0, "f1": 0.0, "tp": 0, "fp": n_pred, "fn": 0}
+    if n_pred == 0:
+        return {"recall": 0.0, "precision": 0.0, "f1": 0.0, "tp": 0, "fp": 0, "fn": n_target}
+
+    matches, unmatched_pred, unmatched_target = _match_against(
+        pred_labeled, n_pred, target, iou_threshold, distance_threshold_mm, spacing
+    )
+    tp, fp, fn = len(matches), len(unmatched_pred), len(unmatched_target)
+    recall = tp / (tp + fn) if tp + fn else 0.0
+    precision = tp / (tp + fp) if tp + fp else 0.0
+    f1 = 2 * precision * recall / (precision + recall) if precision + recall else 0.0
+    return {"recall": recall, "precision": precision, "f1": f1, "tp": tp, "fp": fp, "fn": fn}
+
+
+def calculate_lesion_metrics(
+    pred: np.ndarray,
+    target: np.ndarray,
+    threshold: float = 0.5,
+    min_size_voxels: int = 0,
+    iou_threshold: float = 0.1,
+    distance_threshold_mm: float = 10.0,
+    spacing: Sequence[float] = DEFAULT_SPACING,
+) -> Dict[str, float]:
+    """Per-case lesion recall/precision/F1 and TP/FP/FN counts."""
+    prepared = _prepare_target(target, min_size_voxels)
+    return _lesion_metrics_prepared(
+        pred, prepared, threshold, min_size_voxels, iou_threshold,
+        distance_threshold_mm, spacing,
+    )
+
+
+def lesion_metrics_sweep(
+    pred: np.ndarray,
+    target: np.ndarray,
+    thresholds: Sequence[float],
+    min_size_voxels: int = 0,
+    iou_threshold: float = 0.1,
+    distance_threshold_mm: float = 10.0,
+    spacing: Sequence[float] = DEFAULT_SPACING,
+) -> Dict[float, Dict[str, float]]:
+    """``calculate_lesion_metrics`` for one case at several thresholds,
+    labeling/centering the ground truth only once."""
+    prepared = _prepare_target(target, min_size_voxels)
+    return {
+        t: _lesion_metrics_prepared(
+            pred, prepared, t, min_size_voxels, iou_threshold,
+            distance_threshold_mm, spacing,
+        )
+        for t in thresholds
+    }
+
+
+def _spacing_per_case(spacing, num_cases: int) -> List[Tuple[float, float, float]]:
+    """Broadcast a single spacing tuple or pass through a per-case list."""
+    if num_cases == 0:
+        return []
+    if isinstance(spacing, np.ndarray):
+        spacing = spacing.tolist()
+    if isinstance(spacing, (list, tuple)) and len(spacing) > 0:
+        first = spacing[0]
+        if len(spacing) == num_cases and isinstance(first, (list, tuple, np.ndarray)):
+            return [tuple(float(v) for v in s) for s in spacing]
+        if len(spacing) == 3 and all(isinstance(s, (int, float, np.floating)) for s in spacing):
+            return [tuple(float(v) for v in spacing)] * num_cases
+    return [tuple(map(float, DEFAULT_SPACING))] * num_cases
+
+
+def calculate_metrics(predictions, labels, threshold: float = 0.5, spacing=DEFAULT_SPACING) -> Dict:
+    """Aggregate metrics over a set of cases (list of [D,H,W] arrays or a
+    batched array).  Returns the same key set as the reference
+    (``metrics.py:389-404``), including backward-compat aliases."""
+    pred_list = list(predictions) if isinstance(predictions, (list, tuple)) else [
+        predictions[i] for i in range(predictions.shape[0])
+    ]
+    label_list = list(labels) if isinstance(labels, (list, tuple)) else [
+        labels[i] for i in range(labels.shape[0])
+    ]
+    num_cases = len(pred_list)
+    spacings = _spacing_per_case(spacing, num_cases)
+
+    tp = fp = fn = 0
+    inter_sum = 0.0
+    union_sum = 0.0
+    per_case_dsc = []
+    for pred, target, sp in zip(pred_list, label_list, spacings):
+        pred = np.asarray(pred)
+        target = np.asarray(target)
+        pred_bin = (pred >= threshold).astype(np.int32)
+        target_bin = (target >= 0.5).astype(np.int32)
+        inter_sum += float((pred_bin * target_bin).sum())
+        union_sum += float(pred_bin.sum() + target_bin.sum())
+        per_case_dsc.append(calculate_dsc(pred_bin, target_bin))
+
+        lm = calculate_lesion_metrics(pred, target, threshold=threshold, spacing=sp)
+        tp += lm["tp"]
+        fp += lm["fp"]
+        fn += lm["fn"]
+
+    dsc_micro = (2.0 * inter_sum + SMOOTH) / (union_sum + SMOOTH)
+    dsc_macro = float(np.mean(per_case_dsc)) if per_case_dsc else 0.0
+    recall = tp / (tp + fn) if tp + fn else 0.0
+    precision = tp / (tp + fp) if tp + fp else 0.0
+    f1 = 2 * precision * recall / (precision + recall) if precision + recall else 0.0
+    return {
+        "lesion_wise_recall": recall,
+        "lesion_wise_precision": precision,
+        "lesion_wise_f1": f1,
+        "voxel_wise_dsc_micro": dsc_micro,
+        "voxel_wise_dsc_macro": dsc_macro,
+        "fp_per_case": fp / num_cases if num_cases else 0.0,
+        "tp": tp,
+        "fp": fp,
+        "fn": fn,
+        # backward-compat aliases (reference metrics.py:400-403)
+        "dsc": dsc_micro,
+        "recall": recall,
+        "precision": precision,
+    }
+
+
+def calculate_metrics_sweep(
+    predictions, labels, thresholds: Sequence[float], spacing=DEFAULT_SPACING
+) -> Dict[float, Dict]:
+    """``calculate_metrics`` over several thresholds at once.
+
+    Numerically identical to calling ``calculate_metrics`` per threshold
+    (pinned by test), but the target-side work — binarize, scipy CCL,
+    per-component sizes and centers (~0.5 s per whole-body case) — is done
+    ONCE per case instead of once per (case, threshold).  With the
+    reference's 7-threshold sweep this removes ~6/7 of the ground-truth
+    labeling cost from every validation epoch and the evaluate stage.
+    """
+    pred_list = list(predictions) if isinstance(predictions, (list, tuple)) else [
+        predictions[i] for i in range(predictions.shape[0])
+    ]
+    label_list = list(labels) if isinstance(labels, (list, tuple)) else [
+        labels[i] for i in range(labels.shape[0])
+    ]
+    num_cases = len(pred_list)
+    spacings = _spacing_per_case(spacing, num_cases)
+    thresholds = list(thresholds)
+
+    acc = {
+        t: {"tp": 0, "fp": 0, "fn": 0, "inter": 0.0, "union": 0.0, "dsc": []}
+        for t in thresholds
+    }
+    for pred, target, sp in zip(pred_list, label_list, spacings):
+        pred = np.asarray(pred)
+        target_arr = np.asarray(target)
+        target_bin = (target_arr >= 0.5).astype(np.int32)
+        prepared = _prepare_target(target_arr)
+        for t in thresholds:
+            a = acc[t]
+            pred_bin = (pred >= t).astype(np.int32)
+            a["inter"] += float((pred_bin * target_bin).sum())
+            a["union"] += float(pred_bin.sum() + target_bin.sum())
+            a["dsc"].append(calculate_dsc(pred_bin, target_bin))
+            lm = _lesion_metrics_prepared(
+                pred, prepared, t, 0, 0.1, 10.0, sp
+            )
+            a["tp"] += lm["tp"]
+            a["fp"] += lm["fp"]
+            a["fn"] += lm["fn"]
+
+    out: Dict[float, Dict] = {}
+    for t in thresholds:
+        a = acc[t]
+        tp, fp, fn = a["tp"], a["fp"], a["fn"]
+        dsc_micro = (2.0 * a["inter"] + SMOOTH) / (a["union"] + SMOOTH)
+        dsc_macro = float(np.mean(a["dsc"])) if a["dsc"] else 0.0
+        recall = tp / (tp + fn) if tp + fn else 0.0
+        precision = tp / (tp + fp) if tp + fp else 0.0
+        f1 = 2 * precision * recall / (precision + recall) if precision + recall else 0.0
+        out[t] = {
+            "lesion_wise_recall": recall,
+            "lesion_wise_precision": precision,
+            "lesion_wise_f1": f1,
+            "voxel_wise_dsc_micro": dsc_micro,
+            "voxel_wise_dsc_macro": dsc_macro,
+            "fp_per_case": fp / num_cases if num_cases else 0.0,
+            "tp": tp,
+            "fp": fp,
+            "fn": fn,
+            "dsc": dsc_micro,
+            "recall": recall,
+            "precision": precision,
+        }
+    return out

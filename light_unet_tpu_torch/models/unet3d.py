@@ -94,6 +94,25 @@ class InstanceNorm(nn.Module):
             x, self.weight, self.bias, eps=IN_EPS, negative_slope=self.slope)
 
 
+class ChannelDropout(nn.Module):
+    """Channel dropout on ``[B, D, H, W, C]`` (``nn.Dropout3d`` semantics: a
+    whole channel of a sample is dropped, survivors scaled by 1/(1-p)).  The
+    mask is drawn from ``generator`` (set by the trainer) on the input's device."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand((x.shape[0], 1, 1, 1, x.shape[-1]), generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class DepthwiseSeparableConv(nn.Module):
     """3x3x3 depthwise conv then 1x1x1 pointwise conv (both bias-free)."""
 
@@ -118,7 +137,7 @@ class ResidualBlock(nn.Module):
         self.compute_dtype = compute_dtype
         self.conv1 = self._conv(in_ch, features, use_grouped, groups)
         self.norm1 = InstanceNorm(features, use_pallas, fuse_leaky=True)
-        self.dropout = nn.Dropout3d(dropout_p) if dropout_p > 0 else None
+        self.dropout = ChannelDropout(dropout_p) if dropout_p > 0 else None
         self.conv2 = self._conv(features, features, use_grouped, groups)
         self.norm2 = InstanceNorm(features, use_pallas)
         self.shortcut = None
@@ -139,7 +158,7 @@ class ResidualBlock(nn.Module):
         residual = x if self.shortcut is None else self.shortcut(x)
         out = self.norm1(self.conv1(x))
         if self.dropout is not None:
-            out = to_ndhwc(self.dropout(to_ncdhw(out)))
+            out = self.dropout(out)
         out = self.norm2(self.conv2(out))
         return F.leaky_relu(out + residual, LEAKY_SLOPE)
 
@@ -255,6 +274,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         else:
             p.copy_(0.1 * torch.randn(p.shape, generator=generator))
     return model
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Draw every dropout mask of ``model`` from ``generator``."""
+    for m in model.modules():
+        if isinstance(m, ChannelDropout):
+            m.generator = generator
 
 
 def count_parameters(model: nn.Module) -> dict:

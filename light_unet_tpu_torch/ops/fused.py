@@ -16,7 +16,7 @@ a model built with ``use_pallas`` (the fused norm kernel), or
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,9 +40,11 @@ from light_unet_tpu_torch.ops.sliding_window import (
     bucketed_shape,
     choose_chunks,
     compute_positions,
+    fetch_host,
     sliding_window_core,
+    start_host_copy,
 )
-from light_unet_tpu_torch.ops.sparse_fetch import SparsePack, block_cap, fetch_maybe_sparse, to_numpy
+from light_unet_tpu_torch.ops.sparse_fetch import block_cap
 from light_unet_tpu_torch.utils.device import resolve_device
 
 
@@ -111,16 +113,6 @@ def preprocess_and_infer(volume: torch.Tensor, true_dims, lo: float, hi: float,
                                  dilate_voxels)
         prob = prob * body
     return _finalize_output(prob, quantize_out, sparse_cap, sparse_block)
-
-
-class HostPrefetch(NamedTuple):
-    """A dispatch result whose device-to-host copy is under way: ``host`` is
-    pinned memory receiving the dense map (or, for a ``SparsePack``, only its
-    tile count), and ``done`` is the CUDA event recorded after the copy."""
-
-    out: Any
-    host: torch.Tensor
-    done: Any
 
 
 class FusedVolumePipeline:
@@ -203,31 +195,14 @@ class FusedVolumePipeline:
             dequant=self.transfer_dtype == "uint16", quantize_out=self.quantize_out,
             sparse_cap=cap, sparse_block=self.sparse_block)
         if self.host_prefetch and self.device.type == "cuda":
-            # start the copy now; fetch() waits on the event.  A SparsePack
-            # sends only its count: the tiles are sliced to the occupied
-            # bucket at fetch time, so copying all of them would move the
-            # bytes sparse fetch exists to avoid
-            src = out.count if isinstance(out, SparsePack) else out
-            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-            host.copy_(src, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            out = HostPrefetch(out, host, done)
+            out = start_host_copy(out)  # fetch() waits on its event
         return out, shape
 
     @staticmethod
     def fetch(dispatched) -> np.ndarray:
         """The map of one ``dispatch()`` on the host, float32, original shape."""
         out, shape = dispatched
-        if isinstance(out, HostPrefetch):
-            out.done.synchronize()
-            if isinstance(out.out, SparsePack):
-                host = fetch_maybe_sparse(out.out._replace(count=out.host))
-            else:
-                host = to_numpy(out.host)
-        else:
-            host = fetch_maybe_sparse(out)
-        host = host[: shape[0], : shape[1], : shape[2]]
+        host = fetch_host(out)[: shape[0], : shape[1], : shape[2]]
         if host.dtype == np.uint16:  # quantized fetch -> dequantize on the host
             host = host.astype(np.float32)
             host *= np.float32(1.0 / 65535.0)

@@ -14,7 +14,9 @@ Transfers follow the JAX package: the volume is uploaded as uint16 over its
 own [min, max] range (``tpu.transfer_dtype``), the body mask as bit-packed
 uint8, and the map is quantized to uint16 for the fetch
 (``tpu.fetch_dtype``), optionally block-sparse (``tpu.sparse_fetch``).  A
-uint16 array travels as int16 holding the same bits.
+uint16 array travels as int16 holding the same bits.  With ``host_prefetch``
+(default on, as in the JAX package) ``dispatch`` starts the map's copy into
+pinned host memory behind a CUDA event, so ``fetch`` finds it there.
 
 One device only: a mesh of more than one device, or ``spatial_shard``,
 raises ``NotImplementedError`` (ROADMAP queue 1, item 10).
@@ -22,7 +24,7 @@ raises ``NotImplementedError`` (ROADMAP queue 1, item 10).
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +35,7 @@ from light_unet_tpu_torch.ops.sparse_fetch import (
     block_cap,
     fetch_maybe_sparse,
     pack_blocks,
+    to_numpy,
 )
 from light_unet_tpu_torch.utils.device import resolve_device
 
@@ -193,6 +196,47 @@ def sliding_window_core(volume, positions, n_real, imp_map, apply_fn, patch_size
     return torch.where(count > 0, prob / torch.where(count > 0, count, 1.0), prob)
 
 
+class HostPrefetch(NamedTuple):
+    """A dispatch result whose device-to-host copy is under way: ``host`` is
+    pinned memory receiving the dense map (or, for a ``SparsePack``, only its
+    tile count), and ``done`` is the CUDA event recorded after the copy."""
+
+    out: Any
+    host: torch.Tensor
+    done: Any
+
+
+def start_host_copy(out):
+    """Start ``out``'s copy into pinned host memory; returns a ``HostPrefetch``.
+    A ``SparsePack`` sends only its count: its tiles are sliced to the
+    occupied bucket at fetch time, so copying all of them would move the
+    bytes sparse fetch exists to avoid."""
+    src = out.count if isinstance(out, SparsePack) else out
+    host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    host.copy_(src, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return HostPrefetch(out, host, done)
+
+
+def on_device(out):
+    """The dense device map of a dispatch result (a tensor, a ``SparsePack``
+    or a ``HostPrefetch`` of either)."""
+    if isinstance(out, HostPrefetch):
+        out = out.out
+    return out.dense if isinstance(out, SparsePack) else out
+
+
+def fetch_host(out) -> np.ndarray:
+    """A dispatch result on the host, padded shape, in its fetch dtype."""
+    if isinstance(out, HostPrefetch):
+        out.done.synchronize()
+        if isinstance(out.out, SparsePack):
+            return fetch_maybe_sparse(out.out._replace(count=out.host))
+        return to_numpy(out.host)
+    return fetch_maybe_sparse(out)
+
+
 class SlidingWindowInferencer:
     """Reusable sliding-window engine for one model on one device."""
 
@@ -209,6 +253,7 @@ class SlidingWindowInferencer:
         sparse_fetch_frac: float = 1.0,
         mesh_shape: Optional[Sequence[int]] = None,
         spatial_shard: bool = False,
+        host_prefetch: bool = True,
         device="cuda",
     ):
         if spatial_shard or (mesh_shape is not None and int(np.prod(mesh_shape)) > 1):
@@ -227,6 +272,9 @@ class SlidingWindowInferencer:
         self.sparse_fetch = bool(sparse_fetch)
         self.sparse_frac = float(sparse_fetch_frac)
         self.sparse_block = 8
+        # callers that consume the map on the device (bbox-only serving, the
+        # device validation sweep) turn this off: no copy rides the link
+        self.host_prefetch = bool(host_prefetch)
 
     def prepare(self, volume: np.ndarray, post_mask: Optional[np.ndarray] = None):
         """Host-side prep of one case (patch grid, quantize/pad, mask pack) and
@@ -283,12 +331,15 @@ class SlidingWindowInferencer:
         if prep["post_mask"] is not None:
             out = _apply_post_mask(out, prep["post_mask"], prep["mask_packed"])
         cap = block_cap(vol.shape, self.sparse_block, self.sparse_frac) if self.sparse_fetch else 0
-        return _finalize_output(out, self.quantize_out, cap, self.sparse_block), prep["shape"]
+        out = _finalize_output(out, self.quantize_out, cap, self.sparse_block)
+        if self.host_prefetch and self.device.type == "cuda":
+            out = start_host_copy(out)
+        return out, prep["shape"]
 
     @staticmethod
     def fetch(dispatched) -> np.ndarray:
         out, shape = dispatched
-        host = fetch_maybe_sparse(out)[: shape[0], : shape[1], : shape[2]]
+        host = fetch_host(out)[: shape[0], : shape[1], : shape[2]]
         if host.dtype == np.uint16:  # quantized fetch -> dequantize on the host
             host = host.astype(np.float32)
             host *= np.float32(1.0 / 65535.0)

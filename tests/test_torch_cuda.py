@@ -14,7 +14,8 @@ from light_unet_tpu_torch.config import Config, ModelConfig
 from light_unet_tpu_torch.models.fused_forward import make_fused_apply
 from light_unet_tpu_torch.models.unet3d import ResidualBlock, build_model, init_weights
 from light_unet_tpu_torch.ops import block_kernel, ccl, norm_kernel
-from light_unet_tpu_torch.ops.fused import FusedVolumePipeline, HostPrefetch, normalize_and_body_mask
+from light_unet_tpu_torch.ops.fused import FusedVolumePipeline, normalize_and_body_mask
+from light_unet_tpu_torch.ops.sliding_window import HostPrefetch
 from light_unet_tpu_torch.ops.sparse_fetch import SparsePack
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -260,3 +261,92 @@ def test_fused_pipeline_on_the_card_equals_the_cpu(gen, sparse, fetch):
     assert np.array_equal(got == 0, want == 0) and 0 < (got == 0).mean() < 1
     card.host_prefetch = False
     assert np.array_equal(card(img), got)
+
+
+# --- the train stage: guarded AdamW, the validation sweep, the corpus gather,
+# the sliding window's host prefetch ------------------------------------------
+
+
+def test_guarded_adamw_on_the_card_equals_the_cpu(gen):
+    """One finite and one skipped (nan) step, float32: the card's parameters,
+    moments and count equal the CPU's within 1e-6 relative (the two devices'
+    ``pow`` and ``sqrt`` may differ in the last bit)."""
+    from light_unet_tpu_torch.core.trainer import GuardedAdamW
+
+    shapes = [(16, 1, 3, 3, 3), (32, 16, 1, 1, 1), (16,)]
+    init = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    grads = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    opts = {}
+    for dev in ("cuda", "cpu"):
+        params = [torch.nn.Parameter(t.to(dev).clone()) for t in init]
+        opt = GuardedAdamW(params, 1e-3, 1e-5)
+        assert float(opt.step([g.to(dev) for g in grads], torch.tensor(0.5, device=dev))) == 1.0
+        bad = [g.to(dev).clone() for g in grads]
+        bad[1][0, 0] = float("nan")
+        assert float(opt.step(bad, torch.tensor(0.5, device=dev))) == 0.0
+        opts[dev] = opt
+    for name in ("flat", "mu", "nu"):
+        a, b = getattr(opts["cuda"], name).cpu(), getattr(opts["cpu"], name)
+        assert (a - b).abs().max() <= 1e-6 * b.abs().max(), name
+    assert int(opts["cuda"].count) == int(opts["cpu"].count) == 1
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_validation_sweep_on_the_card_equals_the_cpu(gen, quantized):
+    """The per-threshold counts and sums of a seeded, bucket-padded map are
+    equal on the card and on the CPU (all integer)."""
+    from light_unet_tpu_torch.ops.sliding_window import quantize_out
+    from light_unet_tpu_torch.ops.val_metrics import DeviceValidationSweep
+
+    rng = np.random.default_rng(0)
+    shape = (30, 28, 34)
+    target = np.zeros(shape, np.float32)
+    for _ in range(4):
+        c = rng.integers(4, np.array(shape) - 4)
+        target[c[0] - 2:c[0] + 2, c[1] - 2:c[1] + 2, c[2] - 2:c[2] + 2] = 1
+    prob = np.clip(target * 0.7 + rng.random(shape, dtype=np.float32) * 0.35, 0, 1)
+    padded = torch.nn.functional.pad(torch.from_numpy(prob.astype(np.float32)), (0, 14))
+    if quantized:
+        padded = quantize_out(padded)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        sweep = DeviceValidationSweep([0.1, 0.3, 0.5, 0.7], n_gt_cap=16, device=dev)
+        assert sweep.add_case("c", target)
+        res[dev] = sweep.case_metrics("c", padded.to(dev), (4.0, 4.0, 4.0))
+    assert res["cuda"] is not None and res["cuda"] == res["cpu"]
+
+
+def test_gather_patches_on_the_card_equals_the_cpu(gen):
+    from light_unet_tpu_torch.datasets.device_corpus import gather_patches
+
+    images = torch.randint(-32768, 32767, (3, 40, 41, 48), generator=gen, device="cuda",
+                           dtype=torch.int16)
+    labels = (torch.rand((3, 40, 41, 48), generator=gen, device="cuda") < 0.3).to(torch.uint8)
+    corners = torch.tensor([[0, 0, 0, 0], [2, 24, 25, 32], [1, 7, 0, 19]], dtype=torch.int32)
+    got = gather_patches(images, labels, corners.cuda(), (16, 16, 16))
+    want = gather_patches(images.cpu(), labels.cpu(), corners, (16, 16, 16))
+    assert got[0].shape == (3, 16, 16, 16, 1)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("fetch", ["float32", "uint16"])
+def test_sliding_window_host_prefetch_on_the_card(gen, fetch):
+    """The map copies into pinned memory at dispatch; it equals the map
+    fetched without the prefetch."""
+    from light_unet_tpu_torch.ops.sliding_window import SlidingWindowInferencer
+
+    cfg = Config.from_dict({"model": {"encoder_channels": [4, 8, 16, 32]}})
+    model = init_weights(build_model(cfg.model, torch.float32, inference=True),
+                         torch.Generator().manual_seed(3)).cuda().eval()
+    vol = np.random.default_rng(1).random((20, 18, 30), dtype=np.float32)
+    maps = []
+    for prefetch in (True, False):
+        sw = SlidingWindowInferencer(model, (16, 16, 16), patch_batch=8, z_bucket=16,
+                                     transfer_dtype="uint16", fetch_dtype=fetch,
+                                     host_prefetch=prefetch, device="cuda")
+        out = sw.dispatch(sw.prepare(vol))
+        assert isinstance(out[0], HostPrefetch) == prefetch
+        if prefetch:
+            assert out[0].host.is_pinned()
+        maps.append(sw.fetch(out))
+    assert np.array_equal(maps[0], maps[1])

@@ -8,6 +8,7 @@ float32 convolutions on a card compare with JAX at ``highest`` precision.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 torch.backends.cudnn.allow_tf32 = False
@@ -37,3 +38,15 @@ def random_params(module, x_shape, seed: int, **init_kw):
 def jit_apply(model):
     """``model.apply(params, x, train=False)`` compiled once (faster than eager on CPU)."""
     return jax.jit(lambda p, x: model.apply(p, x, train=False))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for a test module (import this fixture into
+    it): its ops are small, so one thread loses nothing alone, and parallel
+    test workers no longer oversubscribe the cores; float reductions then
+    do not depend on the machine's core count either."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
