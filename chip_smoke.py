@@ -63,8 +63,22 @@ Phases:
    served map (a briefly trained model's maps are speckled); logged:
    evaluate seconds per case, how many cases the stage's own sweep took,
    and device-sweep ms per threshold;
-10. one JSON line of per-kernel numbers (launches summed over the runs under
-   the kernel's gate: serving, fused pipeline, the training phase's
+10. mixed FL + DLBCL training: 2 more raw phantoms with DLBCL ids
+   1001-1002 (seed 1) preprocessed on the card into the same tree; run A
+   is ``configs/unet_mixed_fl_dlbcl.yaml`` (``fl_epoch_plus_dlbcl``, DLBCL
+   steps = FL batches x 1.0; phase 8's model, rate and gates) for 1 epoch
+   on FL 0001-0002 + DLBCL 1001-1002 through ``Trainer.train``, validating
+   on FL 0003-0004: step counts per domain, finite losses, no kernel launch
+   in the training steps and norm-kernel launches in validation,
+   checkpoint and best model written, and a fresh trainer resumes with
+   both sampler streams, the generator and the optimizer step equal; run B
+   is ``probabilistic``, one epoch: FL + DLBCL samples = steps x batch,
+   equal to a CPU ``MixedPatchSampler`` on the same seed; then one float32
+   DLBCL step (a batch with lesion voxels) on the card within 1e-4 relative
+   of the CPU's; logged: ms per step per domain, validation s per case,
+   peak device memory;
+11. one JSON line of per-kernel numbers (launches summed over the runs under
+   the kernel's gate: serving, fused pipeline, the training phases'
    validation and the evaluate phase's serving, each logged), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
@@ -392,8 +406,9 @@ def block_phase(model, batch: int, bar: float, gen, timed: bool):
     return rows, max_err
 
 
-def write_raw_cases(raw_dir: Path, seed: int) -> list:
-    """Raw whole-body PET phantoms at 4 mm with lesion labels, seeded:
+def write_raw_cases(raw_dir: Path, seed: int, ids=None) -> list:
+    """Raw whole-body PET phantoms at 4 mm with lesion labels, seeded (ids
+    0001-0004 unless given):
     SUV-like intensities (air near 0, a textured body ellipsoid around
     1-2.5, cold pockets inside it that the closing fills, a scanner-bed slab
     and specks of air noise that the largest component drops, hot spheres of
@@ -412,7 +427,7 @@ def write_raw_cases(raw_dir: Path, seed: int) -> list:
     # the bed lies 12 voxels below the body, more than the closing (radius 5)
     # bridges, so the largest component drops it
     bed = (yy >= int(0.95 * shape[1])) & (yy < int(0.95 * shape[1]) + 2) & (zz >= 8) & (xx >= 8)
-    ids = [f"{i + 1:04d}" for i in range(N_CASES)]
+    ids = ids or [f"{i + 1:04d}" for i in range(N_CASES)]
     for cid in ids:
         img = body * (1.0 + 1.5 * rng.random(shape, dtype=np.float32))
         img += 0.05 * rng.random(shape, dtype=np.float32)
@@ -724,29 +739,63 @@ def train_config(data_dir: Path, splits: Path, **over) -> dict:
     return cfg
 
 
+# training.mixed_domains of configs/unet_mixed_fl_dlbcl.yaml (the card machine has no PyYAML)
+MIXED_DOMAINS = {"enabled": True, "mode": "fl_epoch_plus_dlbcl", "fl_ratio": 0.5,
+                 "dlbcl_ratio": 0.5, "dlbcl_steps": None, "dlbcl_steps_ratio": 1.0}
+
+
+def mixed_train_config(data_dir: Path, splits: Path, **over) -> dict:
+    """``configs/unet_mixed_fl_dlbcl.yaml`` (``unet_fl70.yaml`` with
+    ``training.mixed_domains`` on): ``train_config`` with the YAML's mixed
+    block and 1 epoch."""
+    cfg = train_config(data_dir, splits, **over)
+    cfg["training"] = {**cfg["training"], "epochs": 1,
+                       "mixed_domains": {**MIXED_DOMAINS, **cfg["training"].get("mixed_domains", {})}}
+    return cfg
+
+
 def write_splits(splits: Path, train: list, val: list) -> None:
     splits.mkdir(parents=True, exist_ok=True)
     for name, ids in (("train", train), ("val", val), ("test", [])):
         (splits / f"{name}_list.txt").write_text("".join(f"{i}\n" for i in ids))
 
 
-def first_step_agreement(data_dir: Path, splits: Path, workdir: Path) -> float:
+def first_step_agreement(data_dir: Path, splits: Path, workdir: Path, config=None,
+                         loader: str = "train_loader", lesion: bool = False) -> float:
     """One float32 training step (augmentation and dropout off, TF32 off) on
-    the card and on the CPU from the same weights and corners; returns the
-    relative loss difference."""
+    the card and on the CPU from the same weights and the same corners of
+    ``loader`` (``config``: ``train_config`` or ``mixed_train_config``;
+    ``lesion``: corners drawn until the batch holds lesion voxels, so that
+    the loss is not the all-background value); returns the relative loss
+    difference."""
     import torch
 
     from light_unet_tpu_torch.config import Config
     from light_unet_tpu_torch.core.trainer import Trainer
+    from light_unet_tpu_torch.datasets.device_corpus import gather_patches
 
     off = {k: {"enabled": False} for k in ("random_flip", "random_rotation", "random_scale",
                                           "intensity_shift", "gaussian_noise")}
-    cfg = train_config(data_dir, splits, tpu={"compute_dtype": "float32", "use_pallas": False},
-                       model={"use_dropout": False}, augmentation=off)
+    cfg = (config or train_config)(data_dir, splits, tpu={"compute_dtype": "float32",
+                                                          "use_pallas": False},
+                                   model={"use_dropout": False}, augmentation=off)
     card = Trainer(Config.from_dict(cfg), workdir=str(workdir / "card"), device="cuda")
     cpu = Trainer(Config.from_dict(cfg), workdir=str(workdir / "cpu"), device="cpu")
     cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
-    corners = card.train_loader.sample_corners()
+    corners = getattr(card, loader).sample_corners()
+    patch = tuple(card.config.data.patch_size)
+
+    def lesion_voxels(c):
+        labels = gather_patches(card.corpus.images, card.corpus.labels,
+                                torch.from_numpy(c).cuda(), patch)[1]
+        return int(labels.sum())
+
+    for _ in range(50 if lesion else 0):
+        if lesion_voxels(corners):
+            break
+        corners = getattr(card, loader).sample_corners()
+    if lesion and not lesion_voxels(corners):
+        raise AssertionError(f"no {loader} batch with lesion voxels in 50 draws")
     for t in (card, cpu):
         t.model.train()
         t._set_lr(t.scheduler.current_lr())
@@ -756,7 +805,9 @@ def first_step_agreement(data_dir: Path, splits: Path, workdir: Path) -> float:
     loss_cpu = float(cpu._step_on_batch(corners))
     t2 = time.perf_counter()
     rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    log(f"  first float32 step: card loss {loss_card:.8f} ({(t1 - t0) * 1e3:.0f} ms with its "
+    what = (f"float32 {loader} step (corpus rows {sorted(set(corners[:, 0].tolist()))}, "
+            f"{lesion_voxels(corners)} lesion voxels)" if lesion else "first float32 step")
+    log(f"  {what}: card loss {loss_card:.8f} ({(t1 - t0) * 1e3:.0f} ms with its "
         f"first launches), CPU loss {loss_cpu:.8f} ({t2 - t1:.1f} s), relative diff {rel:.2e} "
         f"(bar 1e-4)")
     if not (np.isfinite(loss_card) and rel <= 1e-4):
@@ -793,29 +844,17 @@ def profile_steps(trainer, chains: int = 5) -> None:
     report_profile(prof, seconds)
 
 
-def train_phase(tmp: Path, data_dir: Path, ids: list, smi: str, profile: bool = False) -> tuple:
-    """The port ``Trainer`` on the card; returns (best model path, val split,
-    norm-kernel launches in validation)."""
+def count_launches(trainer) -> tuple:
+    """Wrap ``trainer.train_epoch`` and ``trainer.validate`` so that each
+    call adds its norm- and block-kernel launches (and, in training, the
+    plain block's calls) to the returned counts and its seconds, between
+    two synchronizations, to the returned lists."""
     import torch
 
-    from light_unet_tpu_torch.config import Config
-    from light_unet_tpu_torch.core.trainer import Trainer
     from light_unet_tpu_torch.ops import block_kernel, norm_kernel
 
-    splits, work = tmp / "train_splits", tmp / "train"
-    write_splits(splits, ids[:2], ids[2:])
-    cfg = Config.from_dict(train_config(data_dir, splits))
-    t0 = time.perf_counter()
-    trainer = Trainer(cfg, workdir=str(work), device="cuda")
-    steps = len(trainer.train_loader)
-    log(f"  trainer built in {time.perf_counter() - t0:.1f} s: {steps} steps per epoch (batch "
-        f"{cfg.training.batch_size}, {len(trainer.sampler)} pre-sampled locations in "
-        f"{len(trainer.sampler.cases)} cases), corpus {trainer.corpus.per_chip_bytes / 2**20:.1f} MiB "
-        f"on the card, K = {trainer._chain} steps per dispatch")
-    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     launches = {"train": dict(norm=0, block=0, plain_block=0), "val": dict(norm=0, block=0)}
     epoch_s, val_s = [], []
-    train_epoch, validate = trainer.train_epoch, trainer.validate
 
     def counted(fn, where, seconds):
         def run(epoch):
@@ -832,8 +871,33 @@ def train_phase(tmp: Path, data_dir: Path, ids: list, smi: str, profile: bool = 
             return out
         return run
 
-    trainer.train_epoch = counted(train_epoch, "train", epoch_s)
-    trainer.validate = counted(validate, "val", val_s)
+    trainer.train_epoch = counted(trainer.train_epoch, "train", epoch_s)
+    trainer.validate = counted(trainer.validate, "val", val_s)
+    return launches, epoch_s, val_s
+
+
+def train_phase(tmp: Path, data_dir: Path, ids: list, smi: str, profile: bool = False) -> tuple:
+    """The port ``Trainer`` on the card; returns (best model path, val split,
+    norm-kernel launches in validation)."""
+    import torch
+
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.core.trainer import Trainer
+    from light_unet_tpu_torch.ops import block_kernel, norm_kernel
+
+    splits, work = tmp / "train_splits", tmp / "train"
+    write_splits(splits, ids[:2], ids[2:])
+    cfg = Config.from_dict(train_config(data_dir, splits))
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, workdir=str(work), device="cuda")
+    steps = len(trainer.train_loader)
+    sampler = trainer.train_loader.sampler
+    log(f"  trainer built in {time.perf_counter() - t0:.1f} s: {steps} steps per epoch (batch "
+        f"{cfg.training.batch_size}, {len(sampler)} pre-sampled locations in "
+        f"{len(sampler.cases)} cases), corpus {trainer.corpus.per_chip_bytes / 2**20:.1f} MiB "
+        f"on the card, K = {trainer._chain} steps per dispatch")
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    launches, epoch_s, val_s = count_launches(trainer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
@@ -972,6 +1036,137 @@ def evaluate_phase(tmp: Path, data_dir: Path, best: Path, split: Path, smi: str)
     return served
 
 
+def mixed_phase(tmp: Path, data_dir: Path, fl_ids: list, smi: str) -> int:
+    """Mixed FL + DLBCL training on the card: two DLBCL phantoms preprocessed
+    into the tree, run A (the shipped ``fl_epoch_plus_dlbcl`` config, one
+    epoch + validation through ``Trainer.train``, then resume), run B
+    (``probabilistic``, one epoch through ``Trainer.train_epoch``), one
+    float32 DLBCL step against the CPU.  Returns the norm-kernel launches of
+    run A's validation."""
+    import torch
+
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.core.trainer import Trainer
+    from light_unet_tpu_torch.datasets.loader import _domains_dict
+    from light_unet_tpu_torch.datasets.patch_sampler import MixedPatchSampler
+    from light_unet_tpu_torch.datasets.volume_cache import VolumeCache
+    from light_unet_tpu_torch.ops import block_kernel, norm_kernel
+    from light_unet_tpu_torch.pipeline.preprocess import run_preprocess
+
+    t0 = time.perf_counter()
+    raw, dl_splits = tmp / "raw_dlbcl", tmp / "dlbcl_splits"
+    dlbcl = write_raw_cases(raw, seed=1, ids=["1001", "1002"])
+    write_splits(dl_splits, [], dlbcl)
+    pre = run_preprocess(Config.from_dict(SERVING), raw, data_dir, dl_splits, split="val",
+                         device="cuda")["val"]
+    if pre["successful"] != len(dlbcl) or pre["failed"]:
+        raise AssertionError(f"DLBCL preprocess failed: {pre['failed_cases']}")
+    log(f"  DLBCL phantoms {dlbcl} written and preprocessed on the card in "
+        f"{time.perf_counter() - t0:.1f} s ({pre['seconds'] / len(dlbcl):.2f} s per case "
+        f"preprocess) on {smi}")
+    splits, work = tmp / "mixed_splits", tmp / "mixed"
+    write_splits(splits, fl_ids[:2] + dlbcl, fl_ids[2:])
+
+    # run A: configs/unet_mixed_fl_dlbcl.yaml (fl_epoch_plus_dlbcl, ratio 1.0)
+    cfg = Config.from_dict(mixed_train_config(data_dir, splits))
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, workdir=str(work), device="cuda")
+    fl_batches = len(trainer.fl_loader)
+    want_dlbcl = round(fl_batches * cfg.training.mixed_domains.dlbcl_steps_ratio)
+    log(f"  run A ({trainer.mode}) built in {time.perf_counter() - t0:.1f} s: "
+        f"{fl_batches} FL batches ({len(trainer.fl_loader.sampler)} locations), "
+        f"{len(trainer.dlbcl_loader)} DLBCL batches ({len(trainer.dlbcl_loader.sampler)} "
+        f"locations), corpus {trainer.corpus.n_cases} cases "
+        f"{trainer.corpus.per_chip_bytes / 2**20:.1f} MiB, K = {trainer._chain}")
+    launches, epoch_s, val_s = count_launches(trainer)
+    spans, losses = [], []
+    units, flatten = trainer._dispatch_units, trainer._flatten_losses
+
+    def timed_units(loader):  # one span per domain, synchronized at its end
+        torch.cuda.synchronize()
+        t, n = time.perf_counter(), 0
+        for unit in units(loader):
+            n += trainer._unit_steps(unit)
+            yield unit
+        torch.cuda.synchronize()
+        spans.append((n, time.perf_counter() - t))
+
+    trainer._dispatch_units = timed_units
+    trainer._flatten_losses = lambda device_losses: losses.append(flatten(device_losses)) or losses[-1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
+    result = trainer.train()
+    peak = torch.cuda.max_memory_allocated()
+    (n_fl, fl_s), (n_dl, dl_s) = spans
+    fb = trainer.val_fallback_history[0]
+    log(f"  run A: FL {n_fl} steps {fl_s / n_fl * 1e3:.2f} ms/step, DLBCL {n_dl} steps "
+        f"{dl_s / n_dl * 1e3:.2f} ms/step (epoch {epoch_s[0]:.2f} s); loss "
+        f"{trainer.history['train_loss'][0]:.5f} (FL {np.mean(losses[0]):.5f}, DLBCL "
+        f"{np.mean(losses[1]):.5f}); validation {val_s[0]:.2f} s = {val_s[0] / fb['n_cases']:.2f} "
+        f"s/case (device sweep {fb['device']}, escalated {fb['escalated']}, host {fb['host']}), "
+        f"recall {trainer.history['val_recall'][0]:.3f}, dsc {trainer.history['val_dsc'][0]:.4f}; "
+        f"peak device memory {peak / 2**30:.2f} GiB; launches in training steps "
+        f"{launches['train']}, in validation {launches['val']} on {smi}")
+    if (n_fl, n_dl) != (fl_batches, want_dlbcl) or [len(v) for v in losses] != [n_fl, n_dl]:
+        raise AssertionError(f"steps FL {n_fl} DLBCL {n_dl}, want {fl_batches} and {want_dlbcl}")
+    if not all(np.isfinite(v).all() for v in losses) or result["skipped_steps_total"]:
+        raise AssertionError(f"mixed losses not finite ({result['skipped_steps_total']} skipped)")
+    if launches["train"] != dict(norm=0, block=0, plain_block=0) or launches["val"]["norm"] == 0:
+        raise AssertionError(f"kernel launches: training {launches['train']}, "
+                             f"validation {launches['val']}")
+    ckpts = sorted(p.name for p in (work / "models/checkpoints").glob("*.ckpt"))
+    if ckpts != ["checkpoint_epoch_001.ckpt"] or not (work / cfg.output.best_model_path).exists():
+        raise AssertionError(f"checkpoints {ckpts}, best model missing?")
+    fresh = Trainer(cfg, workdir=str(work), device="cuda")
+    same = [a.bit_generator.state == b.bit_generator.state
+            for a, b in zip(fresh.streams, trainer.streams)] if fresh.resume() else []
+    if (same != [True, True] or int(fresh.opt.count) != int(trainer.opt.count)
+            or not torch.equal(fresh.gen.get_state(), trainer.gen.get_state())):
+        raise AssertionError(f"resume: streams equal {same}, step {int(fresh.opt.count)} vs "
+                             f"{int(trainer.opt.count)}")
+    log(f"  run A: checkpoints {ckpts} and {cfg.output.best_model_path}; a fresh trainer resumes "
+        f"at epoch {fresh.start_epoch + 1} with both sampler streams, the generator and the "
+        f"optimizer step ({int(fresh.opt.count)}) equal")
+    fresh.writer.close()
+    del trainer, fresh
+    torch.cuda.empty_cache()
+
+    # run B: probabilistic, one epoch
+    cfg_b = Config.from_dict(mixed_train_config(
+        data_dir, splits, training={"mixed_domains": {"mode": "probabilistic"}}))
+    prob = Trainer(cfg_b, workdir=str(tmp / "mixed_prob"), device="cuda")
+    steps = len(prob.train_loader)
+    prob._set_lr(prob.scheduler.current_lr())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = prob.train_epoch(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = prob.train_dataset.get_sample_counts()
+    ref = MixedPatchSampler(data_dir, splits / "train_list.txt", tuple(cfg_b.data.patch_size),
+                            cfg_b.training.class_balanced_sampling.lesion_patch_ratio,
+                            cfg_b.experiment.seed, _domains_dict(cfg_b),
+                            cfg_b.training.mixed_domains.fl_ratio, cfg_b.data.body_mask,
+                            VolumeCache())
+    for _ in range(steps * cfg_b.training.batch_size):
+        ref.draw_index()
+    log(f"  run B (probabilistic): one epoch, {steps} steps (K = {prob._chain}) in "
+        f"{seconds:.2f} s = {seconds / steps * 1e3:.2f} ms/step, loss "
+        f"{loss:.5f}; samples FL {counts['fl_samples']} + DLBCL {counts['dlbcl_samples']}, the "
+        f"CPU sampler's {ref.get_sample_counts()} on {smi}")
+    if (counts["total_samples"] != steps * cfg_b.training.batch_size
+            or counts != ref.get_sample_counts() or not np.isfinite(loss)):
+        raise AssertionError(f"probabilistic counts {counts} vs {ref.get_sample_counts()}, "
+                             f"loss {loss}")
+    prob.writer.close()
+    del prob
+    first_step_agreement(data_dir, splits, tmp / "mixed_step", config=mixed_train_config,
+                         loader="dlbcl_loader", lesion=True)
+    torch.cuda.empty_cache()
+    return launches["val"]["norm"]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1096,7 +1291,14 @@ def main(argv=None) -> int:
             f"then run_evaluate on the card")
         eval_counts = evaluate_phase(tmp, data_dir, best, val_split, smi)
 
-    # 10. results
+        # 10. mixed FL + DLBCL training
+        log(f"[mixed] configs/unet_mixed_fl_dlbcl.yaml, train FL {ids[:2]} + DLBCL 1001-1002, "
+            f"validate FL {ids[2:]}, 1 epoch, use_pallas on")
+        t0 = time.perf_counter()
+        mixed_val_norm = mixed_phase(tmp, data_dir, ids, smi)
+        log(f"  mixed phase {time.perf_counter() - t0:.1f} s on {smi}")
+
+    # 11. results
     def total(rows, key, weights=None):
         return sum(r[key] * (weights or {}).get(k, 1) for k, r in rows.items())
 
@@ -1122,7 +1324,7 @@ def main(argv=None) -> int:
             "source": "light_unet_tpu_torch/csrc/instance_norm.cu",
             "replaces": "light_unet_tpu/ops/pallas_kernels.py:118",
             "launches": (counts["use_pallas"]["norm"] + fused_counts["use_pallas"]["norm"]
-                         + train_val_norm),
+                         + train_val_norm + mixed_val_norm),
             "max_abs_err": norm_err[torch.bfloat16],
             "ms": total(norm_rows, "ms", norm_calls),
             "plain_ms": total(norm_rows, "plain_ms", norm_calls),
@@ -1136,7 +1338,7 @@ def main(argv=None) -> int:
         f"pipeline {fused_counts['fused_block']['block']} + evaluate-phase serving "
         f"{eval_counts['block']}; instance_norm_leaky = serving {counts['use_pallas']['norm']} + "
         f"fused pipeline {fused_counts['use_pallas']['norm']} + training-phase validation "
-        f"{train_val_norm}")
+        f"{train_val_norm} + mixed-training validation {mixed_val_norm}")
     log("[result] per-kernel times are sums over one 192-patch bf16 forward; "
         f"instance_norm_leaky device time {total(norm_rows, 'device_ms', norm_calls):.4f} ms "
         f"(CUDA events {total(norm_rows, 'ms', norm_calls):.4f} ms)")

@@ -11,7 +11,8 @@ Writing: the trainer's checkpoints are torch files in the reference's dict
 layout (``model_state_dict``, ``optimizer_state_dict``, ``epoch`` and the
 trainer's meta fields), so ``load_checkpoint`` and the serving
 ``Inferencer`` read them unchanged.  Periodic ones are
-``checkpoint_epoch_{n:03d}.ckpt``, rotated to the newest N.
+``checkpoint_epoch_{n:03d}.ckpt``, rotated to the newest N.  Resume reads
+only these: an ``LU3DTPU1`` file there raises a ``ValueError`` that names it.
 """
 
 from __future__ import annotations
@@ -110,8 +111,21 @@ def save_checkpoint(path, model_state_dict: Dict[str, torch.Tensor],
 
 def load_training_checkpoint(path) -> Dict[str, Any]:
     """The whole dict of a checkpoint written by ``save_checkpoint`` (for
-    resume); tensors and plain values only (``weights_only``)."""
-    return torch.load(Path(path), map_location="cpu", weights_only=True)
+    resume); tensors and plain values only (``weights_only``).
+
+    An ``LU3DTPU1`` file raises ``ValueError``: the JAX trainer keeps no
+    sampler or generator state and saves one schedule step behind, so a
+    resume from it would not continue that run.  ``load_checkpoint`` still
+    serves its weights."""
+    path = Path(path)
+    with open(path, "rb") as f:
+        magic = f.read(len(_MAGIC))
+    if magic == _MAGIC:
+        raise ValueError(
+            f"{path} is an {_MAGIC.decode()} checkpoint, written by the JAX trainer "
+            "(light_unet_tpu); resume reads only this package's torch checkpoints. "
+            "Serve its weights with load_checkpoint, or start a new run.")
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def _epoch_key(path: Path) -> Tuple[int, str]:

@@ -11,7 +11,10 @@ components filtered at ``min_volume_cc`` -> voxel + mm bboxes expanded by
 The model runs on ``device`` (``"cuda"`` by default; raises when CUDA is
 absent and the CPU was not asked for).  ``tpu.fused_block`` sends every
 residual block through the fused block kernel; ``tpu.use_pallas`` sends
-every InstanceNorm through the fused norm kernel.
+every InstanceNorm through the fused norm kernel.  In float32 every launch
+runs without TF32 (``utils/device.py:precision_scope``), as the JAX package
+runs its float32 model at ``precision="highest"``; ``tpu.profile_dir``
+traces ``infer_split``.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from light_unet_tpu_torch.models.unet3d import build_model
 from light_unet_tpu_torch.ops.components import bboxes_from_table, component_table_device
 from light_unet_tpu_torch.ops.sliding_window import SlidingWindowInferencer, _u16_to_f32, on_device
 from light_unet_tpu_torch.utils import nifti
-from light_unet_tpu_torch.utils.device import resolve_device
+from light_unet_tpu_torch.utils.device import precision_scope, resolve_device
 
 MAX_DEVICE_COMPONENTS = 64  # device candidate-table cap; host fallback beyond
 
@@ -98,7 +101,8 @@ class Inferencer:
         cfg = self.config
         self.workdir = Path(workdir) if workdir else Path(".")
 
-        self.model = build_model(cfg.model, COMPUTE_DTYPES[cfg.tpu.compute_dtype], inference=True,
+        self.compute_dtype = COMPUTE_DTYPES[cfg.tpu.compute_dtype]
+        self.model = build_model(cfg.model, self.compute_dtype, inference=True,
                                  use_pallas=cfg.tpu.use_pallas)
         state, meta = load_checkpoint(model_path)
         self.model.load_state_dict(state, strict=True)
@@ -166,8 +170,9 @@ class Inferencer:
         prob_dev = on_device(prob_dev)  # the dense map stays on the device
         if prob_dev.dtype == torch.int16:  # uint16 levels -> probabilities
             prob_dev = _u16_to_f32(prob_dev) * (1.0 / 65535.0)
-        table, n_comp = component_table_device(prob_dev, threshold,
-                                               max_components=MAX_DEVICE_COMPONENTS)
+        with precision_scope(self.compute_dtype):
+            table, n_comp = component_table_device(prob_dev, threshold,
+                                                   max_components=MAX_DEVICE_COMPONENTS)
 
         prob_map = None
         if self.save_prob_maps:
@@ -209,13 +214,17 @@ class Inferencer:
             json.dump(bbox_json, f, indent=2)
         return True
 
+    def _dispatch(self, prepared):
+        with precision_scope(self.compute_dtype):
+            return self.sw.dispatch(prepared)
+
     def infer_case(self, case_id: str, data_dir, threshold: float = 0.3) -> bool:
         data_dir = Path(data_dir)
         try:
             inputs = self._load_case_inputs(case_id, data_dir)
             if inputs is None:
                 return False
-            dispatched = self.sw.dispatch(inputs["prepared"])
+            dispatched = self._dispatch(inputs["prepared"])
             return self._finalize_case(case_id, inputs, dispatched, threshold)
         except Exception as e:  # noqa: BLE001 - per-case isolation like the reference
             print(f"Error during inference execution for {case_id}: {e}")
@@ -224,6 +233,12 @@ class Inferencer:
     def infer_split(self, split_file, data_dir) -> Dict:
         """Pipelined split inference: a worker thread decodes case i+1 while
         the device computes case i and the host post-processes case i-1."""
+        from light_unet_tpu_torch.utils.tracing import maybe_profile
+
+        with maybe_profile(self.config.tpu.profile_dir):
+            return self._infer_split_impl(split_file, data_dir)
+
+    def _infer_split_impl(self, split_file, data_dir) -> Dict:
         from concurrent.futures import ThreadPoolExecutor
 
         case_ids = read_split_file(split_file)
@@ -259,7 +274,7 @@ class Inferencer:
                     failed.append(case_id)
                     continue
                 try:
-                    dispatched = self.sw.dispatch(inputs["prepared"])
+                    dispatched = self._dispatch(inputs["prepared"])
                 except Exception as e:  # noqa: BLE001 - per-case isolation
                     print(f"Error during inference execution for {case_id}: {e}")
                     failed.append(case_id)

@@ -1,5 +1,19 @@
-"""Training engine, ``standard`` mode on one device (port of
-``light_unet_tpu/core/trainer.py``).
+"""Training engine on one device (port of ``light_unet_tpu/core/trainer.py``).
+
+Three modes, as ``datasets/loader.py:get_data_loader`` tags them:
+
+* ``standard``: one ``PatchSampler``, one loader, an epoch is its length;
+* ``probabilistic`` (``training.mixed_domains``): one ``MixedPatchSampler``
+  loader; each draw is FL with probability ``fl_ratio``; the epoch writes
+  the ``Domain/*`` sample counts;
+* ``fl_epoch_plus_dlbcl``: an epoch is one pass of the FL loader, then
+  ``mixed.dlbcl_steps`` (else ``round(fl_batches * dlbcl_steps_ratio)``)
+  DLBCL steps from a DLBCL loader that restarts when it runs out; per-step
+  ``Loss/fl_step`` / ``Loss/dlbcl_step`` and the per-epoch ``Domain/*`` step
+  counts.  (The JAX package's epoch in this mode ends in a ``NameError`` on
+  ``total_steps``; here ``total_steps = fl_steps + dlbcl_steps``.)
+
+And in every mode:
 
 * per-epoch sliding-window validation with a threshold sweep over
   ``threshold_sensitivity_range``, on the device (``ops/val_metrics.py``)
@@ -9,7 +23,7 @@
   ``tie_threshold``, early stopping;
 * checkpoints every ``save_every_n_epochs`` with keep-last-N rotation, best
   model at ``output.best_model_path``, real resume (the augmentation /
-  dropout generator and the sampler's numpy stream are saved too, so a
+  dropout generator and every sampler's numpy stream are saved too, so a
   resumed run continues the uninterrupted one);
 * TensorBoard scalars with the JAX package's tag names.
 
@@ -20,16 +34,18 @@ buffer that the model's parameters view, which skips a non-finite step
 whole (parameters, both moments and the step count unchanged) without a
 host sync.  The training forward never reaches the fused kernels: the norm
 kernel serves only ``eval()`` mode (``tpu.use_pallas``), which validation
-uses under ``no_grad``.
+uses under ``no_grad``.  In float32, steps and validation run without TF32
+(``utils/device.py:precision_scope``; the flags are restored after each).
 
 Data: a device-resident corpus (``datasets/device_corpus.py``) when the
-inputs are uint16-quantizable, else the host ``PrefetchLoader``.  With the
-corpus, ``tpu.steps_per_dispatch`` = K groups K corner batches into one
-upload and K steps enqueued back to back; losses and finite-update flags
-stay on the device until the epoch's bulk sync, as in the JAX package.
+inputs are uint16-quantizable, else the host ``PrefetchLoader``.  The mixed
+modes keep one corpus, the FL cases then the DLBCL cases, and their corner
+loaders map each sampler's case index to its row.  With the corpus,
+``tpu.steps_per_dispatch`` = K groups K corner batches into one upload and
+K steps enqueued back to back; losses and finite-update flags stay on the
+device until the epoch's bulk sync, as in the JAX package.
 
-The mixed-domain modes and more than one device wait for later slices
-(ROADMAP queue 1, items 14 and 10).
+More than one device waits for a later slice (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -69,7 +85,7 @@ from light_unet_tpu_torch.ops.sliding_window import (
     on_device,
 )
 from light_unet_tpu_torch.ops.val_metrics import dequantize_prob
-from light_unet_tpu_torch.utils.device import resolve_device
+from light_unet_tpu_torch.utils.device import precision_scope, resolve_device
 
 EPS = 1e-8
 
@@ -225,12 +241,8 @@ class Trainer:
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
 
         # --- model / loss / optimizer -----------------------------------
-        compute_dtype = COMPUTE_DTYPES[cfg.tpu.compute_dtype]
-        if compute_dtype == torch.float32:
-            # the JAX package asks for "highest" precision in float32: no TF32
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-        self.model = build_model(cfg.model, compute_dtype, use_pallas=cfg.tpu.use_pallas)
+        self.compute_dtype = COMPUTE_DTYPES[cfg.tpu.compute_dtype]
+        self.model = build_model(cfg.model, self.compute_dtype, use_pallas=cfg.tpu.use_pallas)
         init_weights(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device)
         set_dropout_generator(self.model, self.gen)
@@ -264,8 +276,20 @@ class Trainer:
             cache=self.cache, batch_size=self.global_batch,
         )
         self.mode = train_result["mode"]
-        self.train_loader = train_result["train_loader"]
-        self.sampler = self.train_loader.sampler
+        self.train_loader = train_result.get("train_loader")
+        self.train_dataset = train_result.get("train_dataset")  # probabilistic: the mixture
+        self.fl_loader = train_result.get("fl_loader")
+        self.dlbcl_loader = train_result.get("dlbcl_loader")
+        if self.mode == "fl_epoch_plus_dlbcl":
+            self._samplers = [train_result["fl_dataset"], train_result["dlbcl_dataset"]]
+        elif self.mode == "probabilistic":
+            self._samplers = [self.train_dataset.fl_sampler, self.train_dataset.dlbcl_sampler]
+        else:
+            self._samplers = [self.train_loader.sampler]
+        # every numpy stream an epoch draws from, in a fixed order (saved and
+        # restored by checkpoints): the mixture's domain stream, then the samplers
+        self.streams = ([self.train_dataset.rng] if self.train_dataset is not None else []) + [
+            s.rng for s in self._samplers]
         val_result = get_data_loader(
             data_dir, Path(splits_dir) / "val_list.txt", cfg, is_train=False, cache=self.cache
         )
@@ -363,8 +387,9 @@ class Trainer:
         return self.opt.params
 
     def _install_device_corpus(self) -> None:
-        """Build the device corpus and swap the host batch loader for a [B,4]
-        corner loader over the same sampler (same numpy stream)."""
+        """Build one device corpus over every sampler's cases (FL, then DLBCL
+        in the mixed modes) and swap the host batch loaders for [B,4] corner
+        loaders over the same samplers (same numpy streams)."""
         from light_unet_tpu_torch.datasets.device_corpus import CornerLoader, DeviceCorpus
 
         cfg = self.config
@@ -374,13 +399,23 @@ class Trainer:
             print(f"device_corpus: budget capped {budget:.2f} -> {ledger_room:.2f} GB "
                   f"by the joint HBM ledger")
             budget = ledger_room
-        cases = list(self.sampler.cases)
+        cases = [case for s in self._samplers for case in s.cases]
         corpus = DeviceCorpus.build(cases, self.cache, tuple(cfg.data.patch_size), budget,
                                     evict=True, device=self.device)
         if corpus is None:
             return
         self.corpus = corpus
-        self.train_loader = CornerLoader(self.sampler, corpus, self.global_batch)
+        batch, n_fl = self.global_batch, len(self._samplers[0].cases)
+        if self.mode == "fl_epoch_plus_dlbcl":
+            self.fl_loader = CornerLoader(self._samplers[0], corpus, batch)
+            self.dlbcl_loader = CornerLoader(self._samplers[1], corpus, batch,
+                                             case_offset_of=lambda which, idx: idx + n_fl)
+        elif self.mode == "probabilistic":
+            self.train_loader = CornerLoader(
+                self.train_dataset, corpus, batch,
+                case_offset_of=lambda which, idx: idx + (n_fl if which else 0))
+        else:
+            self.train_loader = CornerLoader(self._samplers[0], corpus, batch)
         self.ledger.charge("train_corpus", int(corpus.per_chip_bytes))
         # every later pixel read of the train volumes is on the device
         self.cache.drop(p for case in cases
@@ -421,8 +456,13 @@ class Trainer:
         array, or an (images, labels) host pair.  Returns the loss(es) as
         un-synchronized device tensors; the finite flags queue on
         ``self._epoch_oks``."""
-        patch = tuple(self.config.data.patch_size)
-        if isinstance(batch, np.ndarray):
+        with precision_scope(self.compute_dtype):
+            if not isinstance(batch, np.ndarray):
+                images, labels = batch
+                loss, ok = self._step(self._upload(images), self._upload(labels))
+                self._epoch_oks.append(ok)
+                return loss
+            patch = tuple(self.config.data.patch_size)
             corners = self._upload(batch)  # one upload for the whole chain
             chain = corners if batch.ndim == 3 else corners[None]
             losses, oks = [], []
@@ -437,10 +477,6 @@ class Trainer:
                 return losses[0]
             self._epoch_oks.append(torch.stack(oks))
             return torch.stack(losses)
-        images, labels = batch
-        loss, ok = self._step(self._upload(images), self._upload(labels))
-        self._epoch_oks.append(ok)
-        return loss
 
     def _dispatch_units(self, loader):
         """Group corner batches into [K,B,4] chains (``tpu.steps_per_dispatch``
@@ -505,6 +541,10 @@ class Trainer:
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int) -> float:
         self.model.train()
+        if self.mode == "fl_epoch_plus_dlbcl":
+            return self._train_epoch_step_based(epoch)
+        if self.train_dataset is not None:
+            self.train_dataset.reset_sample_counts()
         device_losses = []  # synced in bulk at log points, not per step
         n_total = len(self.train_loader)
         log_every = max(1, n_total // 5)
@@ -529,7 +569,59 @@ class Trainer:
             if np.isfinite(loss):
                 self.writer.add_scalar("Loss/train_step", loss, self._global_step)
             self._global_step += 1
+        if self.train_dataset is not None:
+            counts = self.train_dataset.get_sample_counts()
+            total = counts["total_samples"]
+            if total > 0:
+                self.writer.add_scalar("Domain/fl_samples", counts["fl_samples"], epoch)
+                self.writer.add_scalar("Domain/dlbcl_samples", counts["dlbcl_samples"], epoch)
+                self.writer.add_scalar("Domain/fl_ratio", counts["fl_samples"] / total, epoch)
+                self.writer.add_scalar("Domain/dlbcl_ratio", counts["dlbcl_samples"] / total, epoch)
         return self._finite_mean(losses)
+
+    def _train_epoch_step_based(self, epoch: int) -> float:
+        """``fl_epoch_plus_dlbcl``: one pass of the FL loader, then the DLBCL
+        steps from a loader restarted whenever it runs out; both go through
+        ``_dispatch_units``, so K-step chains form across a restart.  One
+        bulk sync at the end; returns the mean over both domains."""
+        mixed = self.config.training.mixed_domains
+        fl_batches = len(self.fl_loader)
+        dlbcl_steps = (mixed.dlbcl_steps if mixed.dlbcl_steps is not None
+                       else round(fl_batches * mixed.dlbcl_steps_ratio))
+        fl_losses = [self._step_on_batch(b) for b in self._dispatch_units(self.fl_loader)]
+
+        def cycled():
+            it = iter(self.dlbcl_loader)
+            for _ in range(dlbcl_steps):
+                batch = next(it, None)
+                if batch is None:
+                    it = iter(self.dlbcl_loader)
+                    batch = next(it)
+                yield batch
+
+        dlbcl_losses = [self._step_on_batch(b) for b in self._dispatch_units(cycled())]
+        fl_vals = self._flatten_losses(fl_losses)  # one bulk sync for the epoch
+        dlbcl_vals = self._flatten_losses(dlbcl_losses)
+        self._drain_skipped(epoch)
+        for tag, vals in (("Loss/fl_step", fl_vals), ("Loss/dlbcl_step", dlbcl_vals)):
+            for loss in vals:
+                if np.isfinite(loss):
+                    self.writer.add_scalar("Loss/train_step", loss, self._global_step)
+                    self.writer.add_scalar(tag, loss, self._global_step)
+                self._global_step += 1
+        fl_steps, dlbcl_done = len(fl_vals), len(dlbcl_vals)
+        total_steps = fl_steps + dlbcl_done  # > 0: a loader has at least one batch
+        combined = self._finite_mean(fl_vals + dlbcl_vals)
+        self.writer.add_scalar("Domain/fl_steps", fl_steps, epoch)
+        self.writer.add_scalar("Domain/dlbcl_steps", dlbcl_done, epoch)
+        self.writer.add_scalar("Domain/fl_ratio", fl_steps / total_steps, epoch)
+        self.writer.add_scalar("Domain/dlbcl_ratio", dlbcl_done / total_steps, epoch)
+        self.writer.add_scalar("Loss/fl_avg", self._finite_mean(fl_vals), epoch)
+        self.writer.add_scalar("Loss/dlbcl_avg", self._finite_mean(dlbcl_vals), epoch)
+        self.writer.add_scalar("Loss/combined", combined, epoch)
+        print(f"  epoch {epoch + 1}: {fl_steps} FL + {dlbcl_done} DLBCL steps, "
+              f"loss {combined:.4f}", flush=True)
+        return combined
 
     # ------------------------------------------------------------------
     def _val_loss_device(self, prob: torch.Tensor, gt_ids: torch.Tensor, true_dims) -> torch.Tensor:
@@ -539,7 +631,6 @@ class Trainer:
         gt = (gt_ids > 0).float()
         return self._masked_loss(prob, gt, _valid_mask(prob.shape, true_dims, prob.device))
 
-    @torch.no_grad()
     def validate(self, epoch: int) -> Tuple[float, Dict]:
         """Per-epoch threshold-sweep validation.
 
@@ -548,6 +639,11 @@ class Trainer:
         stay resident, and with ``tpu.device_val_images`` the prepared
         inputs stay resident too.  Exact host fallback per case where the
         sweep returns None."""
+        with precision_scope(self.compute_dtype):
+            return self._validate(epoch)
+
+    @torch.no_grad()
+    def _validate(self, epoch: int) -> Tuple[float, Dict]:
         val_t0 = time.time()
         cfg = self.config
         self.model.eval()
@@ -754,7 +850,7 @@ class Trainer:
             "selection_events": self.selection_events,
             "val_fallback_history": self.val_fallback_history,
             "rng_state": {"generator": self.gen.get_state(),
-                          "sampler": self.sampler.rng.bit_generator.state},
+                          "samplers": [s.bit_generator.state for s in self.streams]},
         }
         model_sd, opt_sd = self.model.state_dict(), self.opt.state_dict()
         if cfg.output.save_checkpoints and (epoch + 1) % cfg.output.save_every_n_epochs == 0:
@@ -788,7 +884,8 @@ class Trainer:
         rng = ckpt.get("rng_state")
         if rng is not None:
             self.gen.set_state(rng["generator"])
-            self.sampler.rng.bit_generator.state = rng["sampler"]
+            for stream, state in zip(self.streams, rng["samplers"], strict=True):
+                stream.bit_generator.state = state
         print(f"Resumed from {path} at epoch {self.start_epoch}")
         return True
 

@@ -4,13 +4,15 @@
 ``get_data_loader(data_dir, split_file, config, is_train)`` returns a
 mode-tagged dict:
 
-* ``standard``    one ``PatchSampler`` behind a ``PrefetchLoader``;
-* ``validation``  a ``CaseDataset`` (FL only when mixed training is on).
+* ``standard``            one ``PatchSampler`` behind a ``PrefetchLoader``;
+* ``probabilistic``       a ``MixedPatchSampler`` loader (+ the sampler as
+                          ``train_dataset``);
+* ``fl_epoch_plus_dlbcl`` an FL loader and a DLBCL loader (samplers seeded
+                          ``seed`` and ``seed + 1``, + both samplers);
+* ``validation``          a ``CaseDataset`` (FL only when mixed training is on).
 
-The mixed-domain training modes (``probabilistic``,
-``fl_epoch_plus_dlbcl``) raise ``NotImplementedError`` naming their ROADMAP
-item.  One background thread assembles whole numpy batches from the volume
-cache ahead of the consumer (queue depth ``prefetch_depth``).
+One background thread assembles whole numpy batches from the volume cache
+ahead of the consumer (queue depth ``prefetch_depth``).
 """
 
 from __future__ import annotations
@@ -22,11 +24,8 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 
 from light_unet_tpu_torch.datasets.case_dataset import CaseDataset
-from light_unet_tpu_torch.datasets.patch_sampler import PatchSampler
+from light_unet_tpu_torch.datasets.patch_sampler import MixedPatchSampler, PatchSampler
 from light_unet_tpu_torch.datasets.volume_cache import VolumeCache
-
-MIXED_NOT_PORTED = ("training.mixed_domains (probabilistic, fl_epoch_plus_dlbcl) is not ported "
-                    "to PyTorch yet: ROADMAP queue 1, item 14 (mixed-domain training)")
 
 
 class PrefetchLoader:
@@ -112,8 +111,6 @@ def get_data_loader(data_dir, split_file, config, is_train: bool = True,
         )
         return {"mode": "validation", "val_loader": dataset}
 
-    if mixed.enabled:
-        raise NotImplementedError(MIXED_NOT_PORTED)
     if batch_size is None:
         batch_size = config.training.batch_size
     # batch quantization maps [0,1] -> uint16; another normalization range
@@ -122,10 +119,27 @@ def get_data_loader(data_dir, split_file, config, is_train: bool = True,
         getattr(config.tpu, "transfer_dtype", "float32") == "uint16"
         and list(config.data.intensity.normalization_range) == [0.0, 1.0]
     )
-    sampler = PatchSampler(
-        data_dir, split_file, tuple(config.data.patch_size),
-        config.training.class_balanced_sampling.lesion_patch_ratio,
-        config.experiment.seed, None, config.data.body_mask, cache,
-    )
-    return {"mode": "standard",
-            "train_loader": PrefetchLoader(sampler, batch_size, config.tpu.prefetch_depth, quantize)}
+    patch = tuple(config.data.patch_size)
+    lesion_ratio = config.training.class_balanced_sampling.lesion_patch_ratio
+    seed = config.experiment.seed
+
+    def loader(sampler):
+        return PrefetchLoader(sampler, batch_size, config.tpu.prefetch_depth, quantize)
+
+    if mixed.enabled and mixed.mode == "fl_epoch_plus_dlbcl":
+        fl, dlbcl = (
+            PatchSampler(data_dir, split_file, patch, lesion_ratio, seed + i,
+                         {"domain": name, **_domains_dict(config)}, config.data.body_mask, cache)
+            for i, name in enumerate(("fl", "dlbcl"))
+        )
+        return {"mode": "fl_epoch_plus_dlbcl", "fl_loader": loader(fl),
+                "dlbcl_loader": loader(dlbcl), "fl_dataset": fl, "dlbcl_dataset": dlbcl}
+    if mixed.enabled:
+        dataset = MixedPatchSampler(data_dir, split_file, patch, lesion_ratio, seed,
+                                    _domains_dict(config), mixed.fl_ratio, config.data.body_mask,
+                                    cache)
+        return {"mode": "probabilistic", "train_loader": loader(dataset),
+                "train_dataset": dataset}
+    sampler = PatchSampler(data_dir, split_file, patch, lesion_ratio, seed, None,
+                           config.data.body_mask, cache)
+    return {"mode": "standard", "train_loader": loader(sampler)}

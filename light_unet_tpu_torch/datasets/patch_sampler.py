@@ -1,5 +1,6 @@
 """Class-balanced 3D patch sampling for training (port of
-``light_unet_tpu/datasets/patch_sampler.py``: ``PatchSampler``).
+``light_unet_tpu/datasets/patch_sampler.py``: ``PatchSampler`` and the
+FL/DLBCL mixture ``MixedPatchSampler``).
 
 * at construction, pre-sample candidate centers per case: one per 1000
   lesion voxels (min 10) and one per 5000 background voxels (min 10),
@@ -9,8 +10,10 @@
 * patches are clamped at volume borders and zero-padded.
 
 Randomness is the JAX package's numpy stream (``default_rng(seed)``, the
-same call sequence), so both packages draw the same patches.  The
-mixed-domain sampler waits for a later slice (ROADMAP queue 1).
+same call sequence), so both packages draw the same patches.  The mixture
+draws its domain from its own stream (``seed``) and then calls the FL
+sampler (``seed``) or the DLBCL sampler (``seed + 1``); both share one
+volume cache.
 """
 
 from __future__ import annotations
@@ -153,3 +156,78 @@ class PatchSampler:
             np.stack(imgs)[..., None],
             np.stack(lbls)[..., None],
         )
+
+
+class MixedPatchSampler:
+    """Probabilistic FL/DLBCL mixture: FL with probability ``fl_ratio``, else
+    DLBCL (FL again when the DLBCL split is empty); per-domain sample counts
+    for the ``Domain/*`` TensorBoard scalars."""
+
+    def __init__(
+        self,
+        data_dir,
+        split_file,
+        patch_size=(48, 48, 48),
+        lesion_patch_ratio: float = 0.5,
+        seed: int = 42,
+        domain_config: Optional[dict] = None,
+        fl_ratio: float = 0.5,
+        body_mask_config=None,
+        cache: Optional[VolumeCache] = None,
+    ):
+        self.fl_ratio = float(fl_ratio)
+        self.rng = np.random.default_rng(seed)
+        base = {**DEFAULT_FL_DOMAIN_CONFIG, **(domain_config or {})}
+        prefixes = {k: base[k] for k in ("fl_prefix_max", "dlbcl_prefix_min", "dlbcl_prefix_max")}
+        shared_cache = cache if cache is not None else VolumeCache()
+        self.fl_sampler = PatchSampler(
+            data_dir, split_file, patch_size, lesion_patch_ratio, seed,
+            {"domain": "fl", **prefixes}, body_mask_config, shared_cache,
+        )
+        self.dlbcl_sampler = PatchSampler(
+            data_dir, split_file, patch_size, lesion_patch_ratio, seed + 1,
+            {"domain": "dlbcl", **prefixes}, body_mask_config, shared_cache,
+        )
+        self.reset_sample_counts()
+
+    def __len__(self) -> int:
+        return len(self.fl_sampler) + len(self.dlbcl_sampler)
+
+    @property
+    def patch_size(self):
+        return self.fl_sampler.patch_size
+
+    def draw_index(self) -> Tuple[int, int, np.ndarray]:
+        """``(sub_sampler, case_idx, center)``, sub-sampler 0 = FL, 1 = DLBCL:
+        one ``random()`` for the domain, then the sub-sampler's two calls."""
+        if self.rng.random() < self.fl_ratio and len(self.fl_sampler) > 0:
+            self.fl_sample_count += 1
+            return (0, *self.fl_sampler.draw_index()[1:])
+        if len(self.dlbcl_sampler) > 0:
+            self.dlbcl_sample_count += 1
+            return (1, *self.dlbcl_sampler.draw_index()[1:])
+        self.fl_sample_count += 1
+        return (0, *self.fl_sampler.draw_index()[1:])
+
+    def draw(self) -> Tuple[np.ndarray, np.ndarray]:
+        which, case_idx, center = self.draw_index()
+        sampler = self.fl_sampler if which == 0 else self.dlbcl_sampler
+        case = sampler.cases[case_idx]
+        img, lbl = sampler._extract_patch(sampler.cache.get(case.image_path),
+                                          sampler.cache.get(case.label_path), center)
+        return img.astype(np.float32), lbl.astype(np.float32)
+
+    def sample_batch(self, batch_size: int) -> Tuple[np.ndarray, np.ndarray]:
+        imgs, lbls = zip(*(self.draw() for _ in range(batch_size)))
+        return np.stack(imgs)[..., None], np.stack(lbls)[..., None]
+
+    def reset_sample_counts(self) -> None:
+        self.fl_sample_count = 0
+        self.dlbcl_sample_count = 0
+
+    def get_sample_counts(self) -> Dict[str, int]:
+        return {
+            "fl_samples": self.fl_sample_count,
+            "dlbcl_samples": self.dlbcl_sample_count,
+            "total_samples": self.fl_sample_count + self.dlbcl_sample_count,
+        }

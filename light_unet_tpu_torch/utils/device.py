@@ -1,6 +1,8 @@
-"""Device selection for the port's entry points."""
+"""Device selection and float32 precision for the port's entry points."""
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
@@ -18,3 +20,26 @@ def resolve_device(device="cuda") -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@contextmanager
+def precision_scope(compute_dtype: torch.dtype):
+    """No TF32 inside the block when ``compute_dtype`` is float32.
+
+    The JAX package runs its float32 model at ``precision="highest"``; torch
+    lets cuDNN convolutions (and, where enabled, matmuls) round their inputs
+    to TF32 on a card.  For float32 this turns
+    ``torch.backends.cudnn.allow_tf32`` and
+    ``torch.backends.cuda.matmul.allow_tf32`` off and restores both on exit;
+    other dtypes leave them as they are.
+    """
+    if compute_dtype != torch.float32:
+        yield
+        return
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -350,3 +350,34 @@ def test_sliding_window_host_prefetch_on_the_card(gen, fetch):
             assert out[0].host.is_pinned()
         maps.append(sw.fetch(out))
     assert np.array_equal(maps[0], maps[1])
+
+
+def test_float32_inferencer_on_the_card_equals_the_cpu(gen, tmp_path, monkeypatch):
+    """With TF32 on globally (cuDNN's default), a float32 ``Inferencer`` on
+    the card serves the CPU's map within 1e-4: its launches run without
+    TF32, and the flags are on again afterwards."""
+    from light_unet_tpu_torch.core.inferencer import Inferencer
+    from light_unet_tpu_torch.utils import nifti
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    data = tmp_path / "processed"
+    (data / "images").mkdir(parents=True)
+    vol = np.random.default_rng(2).random((24, 24, 40), dtype=np.float32)
+    nifti.save(nifti.Nifti1Image(vol, np.diag([4.0, 4.0, 4.0, 1.0])), data / "images/0001_0000.nii.gz")
+    cfg = {"data": {"patch_size": [16, 16, 16], "body_mask": {"enabled": False}},
+           "tpu": {"compute_dtype": "float32", "fetch_dtype": "float32", "patch_batch": 8,
+                   "z_bucket": 16}}
+    model = init_weights(build_model(Config.from_dict(cfg).model, torch.float32, inference=True),
+                         torch.Generator().manual_seed(4))
+    ckpt = tmp_path / "model.pth"
+    torch.save({"model_state_dict": model.state_dict(), "epoch": 0}, ckpt)
+    maps = {}
+    for device in ("cuda", "cpu"):
+        inf = Inferencer(cfg, ckpt, workdir=str(tmp_path / device), device=device)
+        assert inf.infer_case("0001", data)
+        maps[device] = nifti.load(tmp_path / device / "inference/prob_maps/0001_prob.nii.gz"
+                                  ).get_fdata(np.float32)
+    assert maps["cpu"].shape == vol.shape and np.ptp(maps["cpu"]) > 0
+    assert np.abs(maps["cuda"] - maps["cpu"]).max() <= 1e-4
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32

@@ -140,10 +140,17 @@ def test_loader_batches_match_jax(tree, transfer):
     assert val["mode"] == "validation" and len(val["val_loader"]) == 2
 
 
-def test_mixed_domains_name_the_roadmap(tree):
-    cfg = Config.from_dict({"training": {"mixed_domains": {"enabled": True}}})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 14"):
-        TL.get_data_loader(tree, tree / "splits/train_list.txt", cfg, is_train=True)
+@pytest.mark.parametrize("mode", ["probabilistic", "fl_epoch_plus_dlbcl"])
+def test_mixed_domains_factory_mode_tags(tree, mode):
+    """The factory's mode tag and keys in both mixed modes are the JAX
+    factory's (loaders and samplers are held against JAX in
+    ``tests/test_torch_mixed.py``)."""
+    cfg = {**CFG, "training": {**CFG["training"], "mixed_domains": {"enabled": True, "mode": mode}}}
+    split = tree / "splits/train_list.txt"
+    ours = TL.get_data_loader(tree, split, Config.from_dict(cfg), is_train=True)
+    theirs = JL.get_data_loader(tree, split, JaxConfig.from_dict(cfg), is_train=True)
+    assert ours["mode"] == theirs["mode"] == mode
+    assert set(ours) == set(theirs)
 
 
 def test_corpus_matches_jax(tree):

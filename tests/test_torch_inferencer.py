@@ -19,7 +19,9 @@ from light_unet_tpu.models.unet3d import build_model as jax_build_model
 from light_unet_tpu.utils import nifti
 from light_unet_tpu_torch import cli
 from light_unet_tpu_torch.config import Config
+from light_unet_tpu_torch.core import inferencer as inferencer_mod
 from light_unet_tpu_torch.core.inferencer import Inferencer
+from light_unet_tpu_torch.utils.device import precision_scope
 from tests.synthetic import make_phantom, write_split_files
 from tests.torch_parity import random_params
 
@@ -107,6 +109,57 @@ def test_no_silent_cpu(workspace, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Inferencer(CFG, ckpt)
+
+
+def _tf32_flags():
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.fixture
+def tf32_on(monkeypatch):
+    """Both TF32 flags on (cuDNN's default), restored after the test."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+
+
+@pytest.mark.parametrize("dtype,inside", [(torch.float32, (False, False)),
+                                          (torch.bfloat16, (True, True))])
+def test_precision_scope_is_scoped(tf32_on, dtype, inside):
+    with precision_scope(dtype):
+        assert _tf32_flags() == inside
+    with pytest.raises(KeyError):
+        with precision_scope(dtype):
+            raise KeyError("restored on the way out too")
+    assert _tf32_flags() == (True, True)
+
+
+def test_float32_serving_has_no_tf32_and_restores_the_flags(workspace, tf32_on, monkeypatch):
+    """A float32 ``Inferencer`` runs its forwards and its candidate table
+    with TF32 off (the JAX package's "highest" precision) and leaves the
+    global flags as it found them."""
+    tmp, data, ckpt = workspace
+    seen = []
+    inf = Inferencer(CFG, ckpt, workdir=str(tmp / "tf32"), device="cpu")
+    inf.model.out_conv.register_forward_pre_hook(lambda *_: seen.append(("forward", _tf32_flags())))
+    table = inferencer_mod.component_table_device
+    monkeypatch.setattr(inferencer_mod, "component_table_device",
+                        lambda *a, **k: seen.append(("table", _tf32_flags())) or table(*a, **k))
+    assert inf.infer_case(CASES[0], data, threshold=THRESHOLD)
+    assert inf.infer_split(tmp / "splits/val_list.txt", data)["successful"] == len(CASES)
+    assert {w for w, _ in seen} == {"forward", "table"}
+    assert {f for _, f in seen} == {(False, False)}
+    assert _tf32_flags() == (True, True)
+
+
+def test_infer_split_writes_a_trace_to_profile_dir(workspace):
+    """``tpu.profile_dir`` traces ``infer_split``, as in the JAX package."""
+    tmp, data, ckpt = workspace
+    cfg = {**CFG, "tpu": {**CFG["tpu"], "profile_dir": str(tmp / "profile")}}
+    inf = Inferencer(cfg, ckpt, workdir=str(tmp / "profiled"), device="cpu")
+    result = inf.infer_split(tmp / "splits/val_list.txt", data)
+    assert result["successful"] == len(CASES) and not result["failed"]
+    traces = list((tmp / "profile").glob("trace_*.json"))
+    assert len(traces) == 1 and traces[0].stat().st_size > 0
 
 
 @pytest.mark.parametrize("mode", ["bench"])

@@ -13,13 +13,17 @@ import numpy as np
 import pytest
 import torch
 
+from light_unet_tpu.config import Config as JaxConfig
+from light_unet_tpu.core.checkpoint import save_checkpoint as jax_save_checkpoint
+from light_unet_tpu.models.unet3d import build_model as jax_build_model
 from light_unet_tpu.utils import nifti
 from light_unet_tpu_torch import cli
 from light_unet_tpu_torch.config import Config
+from light_unet_tpu_torch.core.checkpoint import load_checkpoint
 from light_unet_tpu_torch.core.trainer import Trainer
 from light_unet_tpu_torch.ops.sliding_window import SlidingWindowInferencer
 from tests.synthetic import build_raw_dataset, make_phantom, write_split_files
-from tests.torch_parity import one_torch_thread  # noqa: F401 (fixture)
+from tests.torch_parity import one_torch_thread, random_params  # noqa: F401 (fixture)
 
 IDS = ["0001", "0002", "0003", "0004"]
 
@@ -76,8 +80,6 @@ def test_train_two_epochs_writes_history_and_checkpoints(tree):
     assert [h["device"] + h["host"] for h in result["val_fallback_history"]] == [2, 2]
     assert tr._global_step == 2 * len(tr.train_loader)
     # the best model is what the serving path reads
-    from light_unet_tpu_torch.core.checkpoint import load_checkpoint
-
     state, meta = load_checkpoint(work / "models/best_model.pth")
     assert set(state) == set(tr.model.state_dict()) and meta["best_epoch"] == result["best_epoch"]
 
@@ -99,6 +101,43 @@ def test_resume_continues_the_uninterrupted_run(tree):
     names = sorted(p.name for p in (tree / "part/models/checkpoints").iterdir())
     assert names == ["checkpoint_epoch_002.ckpt", "checkpoint_epoch_003.ckpt"]
     assert not _trainer(tree, "empty").resume()
+
+
+def test_resume_refuses_a_jax_checkpoint(tree):
+    """A periodic checkpoint written by the JAX trainer (``LU3DTPU1``) cannot
+    continue a port run: resume names the format; serving still reads it."""
+    tr = _trainer(tree, "from_jax")
+    jax_cfg = JaxConfig.from_dict(_cfg(tree))
+    params = random_params(jax_build_model(jax_cfg.model), (1, 16, 16, 16, 1), seed=6, train=False)
+    path = tr.checkpoint_dir / "checkpoint_epoch_001.ckpt"
+    jax_save_checkpoint(path, {"params": params}, {"epoch": 0, "config": jax_cfg.to_dict()})
+    with pytest.raises(ValueError, match="LU3DTPU1.*JAX trainer"):
+        tr.resume()
+    state, meta = load_checkpoint(path)
+    tr.model.load_state_dict(state, strict=True)
+    assert meta["epoch"] == 0 and tr.start_epoch == 0
+
+
+def _tf32_flags():
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def test_float32_training_has_no_tf32_and_restores_the_flags(tree, monkeypatch):
+    """A float32 trainer steps and validates with TF32 off (the JAX
+    package's "highest" precision) and leaves the global flags as it found
+    them: building it, stepping and validating change nothing outside."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    tr = _trainer(tree, "tf32")
+    assert _tf32_flags() == (True, True)
+    seen = []
+    tr.model.out_conv.register_forward_pre_hook(lambda *_: seen.append(_tf32_flags()))
+    tr.model.train()
+    loss = tr._step_on_batch(tr.train_loader.sample_corners())
+    assert np.isfinite(float(loss)) and _tf32_flags() == (True, True)
+    tr.validate(0)
+    assert len(seen) > 1 and set(seen) == {(False, False)}
+    assert _tf32_flags() == (True, True)
 
 
 def _epoch_losses(tr):
@@ -187,12 +226,9 @@ def test_cli_all_on_the_cpu(tmp_path):
     assert sorted(detailed["per_case"]) == sorted(val)
 
 
-def test_cli_bench_and_mixed_training_name_the_roadmap(tree):
+def test_cli_bench_and_multi_device_training_name_the_roadmap(tree):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         cli.run(["--mode", "bench"])
-    cfg = Config.from_dict({**_cfg(tree), "training": {"mixed_domains": {"enabled": True}}})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 14"):
-        Trainer(cfg, workdir=str(tree / "mixed"), device="cpu")
     multi = Config.from_dict({**_cfg(tree), "tpu": {"mesh_shape": [2]}})
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
         Trainer(multi, workdir=str(tree / "multi"), device="cpu")
