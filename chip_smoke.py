@@ -7,7 +7,9 @@
 
 Phases:
 1. device line: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build the CUDA kernels from ``light_unet_tpu_torch/csrc`` (``ops/_build.py``);
+2. build the CUDA kernels from ``light_unet_tpu_torch/csrc`` (``ops/_build.py``)
+   and, in parallel, the host library ``csrc/fastio.cpp`` with the C++
+   compiler (logged: compiler, its version, seconds, host cores);
 3. the fused InstanceNorm + LeakyReLU kernel at the four serving shapes,
    B = 192, bf16 and f32, slopes 0.01 and 1.0, held against its plain
    version (f32 <= 1e-4 abs, bf16 <= 2e-2 abs), two calls on one input
@@ -26,23 +28,36 @@ Phases:
    ``split_dataset`` (ratios 0/1/0: all to val) and ``run_preprocess`` on
    the card; one case's processed image, body mask and voxel counts are
    held against the port's own CPU run of ``normalize_and_body_mask``
-   (mask and counts equal, normalized <= 1e-6 abs); logged: seconds per
-   case, one case's time split serially (decode, percentiles, device pass,
-   NIfTI writes), CUDA-event ms of the body-mask chain and
-   ``label_propagate`` rounds per volume;
+   (mask and counts equal, normalized <= 1e-6 abs); the stage must have
+   decoded and taken its percentiles through the host library; logged:
+   seconds per case, one case's time split serially with ``StageTimer``
+   (decode, percentiles, device pass, NIfTI writes), CUDA-event ms of the
+   body-mask chain and ``label_propagate`` rounds per volume;
+5b. the host I/O library (``utils/fastio.py``): ``load_f32`` equal to the
+   codec bit for bit (arrays and headers) on the raw phantoms, their
+   processed images and body masks and a scaled int16 file,
+   ``load_batch_f32`` equal to the single decodes, ``percentiles`` equal to
+   ``np.percentile`` and ``quantize_pad`` to the numpy chain on each raw
+   volume; logged: each one's time beside its plain version's (min of 3),
+   the inflate's MB/s, the batch decode's vol/s;
 6. the serving path: a seeded ``best_model.pth`` and the preprocessed tree
    (its body masks included) go through ``Inferencer.infer_split`` three
    times: ``tpu.fused_block`` (the block kernel's launch count must rise,
    the plain block must never run), ``tpu.use_pallas`` (the norm kernel's
    count must rise), and neither gate (the plain model), whose prob maps
-   the first two must match within 5e-2 abs;
+   the first two must match within 5e-2 abs; each run decodes image and
+   body mask of every case through the host library; one case is then
+   split serially with ``StageTimer`` (decode, prepare, dispatch, device
+   work, candidate table, fetch, NIfTI write, JSON write);
 7. the fused per-volume pipeline: ``FusedVolumePipeline`` over the 4 raw
    volumes (uint16 upload and fetch, sparse fetch, decode and prepare on a
    worker thread) under the same three gates with the same launch-count
    bars and the same 5e-2 bar; each map must be exactly 0 wherever
-   ``body_mask_core`` of the same dequantized volume on the card is 0;
-   logged: vol/s, peak device memory, and under ``fused_block`` one
-   volume's time split serially (decode, prepare, dispatch, fetch);
+   ``body_mask_core`` of the same dequantized volume on the card is 0; each
+   run makes one native decode, percentile selection and quantize + pad
+   per volume; logged: vol/s, peak device memory, and under
+   ``fused_block`` one volume's time split serially with ``StageTimer``
+   (decode, prepare, dispatch, fetch);
 8. the train stage: the port ``Trainer`` at the full ``configs/unet_fl70.yaml``
    model (bf16, batch 2, 48^3, device corpus, ``steps_per_dispatch`` 4,
    separable augmentation, augmentation and dropout on, ``tpu.use_pallas``
@@ -202,6 +217,16 @@ def ptxas_usage(text: str) -> list:
             out.append((kernel, f"{regs} registers, {spill} bytes spill stores"))
             kernel = None
     return out
+
+
+def report_stages(timer, title: str) -> dict:
+    """``title``, then ``StageTimer.report`` and its summary as one JSON line
+    (seconds to 4 decimals); returns the summary."""
+    log(f"  {title} (StageTimer):")
+    timer.report(prefix="    ")
+    summary = timer.summary()
+    log(f"    stages: {json.dumps(summary)}")
+    return summary
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -486,7 +511,8 @@ def preprocess_phase(tmp: Path, config: dict) -> tuple:
     from light_unet_tpu_torch.ops.sliding_window import _valid_mask
     from light_unet_tpu_torch.pipeline.preprocess import run_preprocess
     from light_unet_tpu_torch.pipeline.split import split_dataset
-    from light_unet_tpu_torch.utils import nifti
+    from light_unet_tpu_torch.utils import fastio, nifti
+    from light_unet_tpu_torch.utils.tracing import StageTimer
 
     raw, splits, processed = tmp / "raw", tmp / "splits", tmp / "processed"
     t0 = time.perf_counter()
@@ -497,22 +523,26 @@ def preprocess_phase(tmp: Path, config: dict) -> tuple:
     if manifest["splits"]["val"] != ids:
         raise AssertionError(f"split put {manifest['split_sizes']} cases, not all 4 in val")
     cfg = Config.from_dict(config)
+    calls = dict(fastio.calls)
     summaries = run_preprocess(cfg, raw, processed, splits, split="val", device="cuda")
     val = summaries["val"]
     if val["successful"] != N_CASES or val["failed"]:
         raise AssertionError(f"preprocess failed: {val['failed_cases']}")
+    native = {k: fastio.calls[k] - calls[k] for k in calls}
+    if native["decode"] < N_CASES or native["order_stats"] < N_CASES:
+        raise AssertionError(f"run_preprocess did not go through the host library: {native}")
     log(f"  run_preprocess on the card: {val['seconds'] / N_CASES:.2f} s per case "
-        f"(decode, percentiles, device pass, NIfTI writes)")
+        f"(decode, percentiles, device pass, NIfTI writes); host library calls {native}")
 
     # one case against the port's CPU run of the same pass
     cid = ids[0]
-    image = nifti.load(raw / f"images/{cid}_0000.nii.gz").get_fdata(np.float32)
+    image = fastio.load_f32(raw / f"images/{cid}_0000.nii.gz")[0]
     t0 = time.perf_counter()
     norm_cpu, mask_cpu, imeta, mmeta = normalize_and_body_mask(
         image, cfg.data.intensity, cfg.data.body_mask, z_bucket=cfg.tpu.z_bucket, device="cpu")
     cpu_s = time.perf_counter() - t0
-    norm_card = nifti.load(processed / f"images/{cid}_0000.nii.gz").get_fdata(np.float32)
-    mask_card = nifti.load(processed / f"body_masks/{cid}.nii.gz").get_fdata(np.float32) > 0.5
+    norm_card = fastio.load_f32(processed / f"images/{cid}_0000.nii.gz")[0]
+    mask_card = fastio.load_f32(processed / f"body_masks/{cid}.nii.gz")[0] > 0.5
     meta = json.loads((processed / f"metadata/{cid}.json").read_text())
     err = float(np.abs(norm_card - norm_cpu).max())
     if not (np.array_equal(mask_card, mask_cpu) and meta["body_mask"] == mmeta
@@ -523,28 +553,31 @@ def preprocess_phase(tmp: Path, config: dict) -> tuple:
     log(f"  case {cid} vs the CPU run ({cpu_s:.1f} s): mask equal, counts equal "
         f"{mmeta['voxel_counts']}, normalized max abs diff {err:.1e} (bar 1e-6)")
 
-    # where one case's time goes, serially
-    t0 = time.perf_counter()
-    image = nifti.load(raw / f"images/{cid}_0000.nii.gz").get_fdata(np.float32)
-    t1 = time.perf_counter()
-    compute_clip_values(image, cfg.data.intensity.clip_percentile_low,
-                        cfg.data.intensity.clip_percentile_high)
-    t2 = time.perf_counter()
-    norm, mask, _, _ = normalize_and_body_mask(image, cfg.data.intensity, cfg.data.body_mask,
-                                               z_bucket=cfg.tpu.z_bucket, device="cuda")
-    t3 = time.perf_counter()
-    nifti.save(nifti.Nifti1Image(norm, np.diag([4.0, 4.0, 4.0, 1.0])), tmp / "phase_probe.nii.gz")
-    nifti.save(nifti.Nifti1Image(mask.astype(np.uint8), np.diag([4.0, 4.0, 4.0, 1.0])),
-               tmp / "phase_probe_mask.nii.gz")
-    t4 = time.perf_counter()
-    log(f"  one case, serially: decode {t1 - t0:.3f} s, percentiles {t2 - t1:.3f} s, "
-        f"device pass (upload, normalize, body mask, fetch) {t3 - t2 - (t2 - t1):.3f} s, "
-        f"NIfTI writes (image + mask) {t4 - t3:.3f} s")
+    # where one case's time goes, serially (the device pass computes the
+    # percentiles again: the line after the report subtracts them)
+    timer = StageTimer()
+    torch.cuda.synchronize()
+    with timer.time("decode"):
+        image = fastio.load_f32(raw / f"images/{cid}_0000.nii.gz")[0]
+    with timer.time("percentiles"):
+        compute_clip_values(image, cfg.data.intensity.clip_percentile_low,
+                            cfg.data.intensity.clip_percentile_high)
+    with timer.time("device pass"):
+        norm, mask, _, _ = normalize_and_body_mask(image, cfg.data.intensity, cfg.data.body_mask,
+                                                   z_bucket=cfg.tpu.z_bucket, device="cuda")
+    with timer.time("NIfTI writes"):
+        nifti.save(nifti.Nifti1Image(norm, np.diag([4.0, 4.0, 4.0, 1.0])),
+                   tmp / "phase_probe.nii.gz")
+        nifti.save(nifti.Nifti1Image(mask.astype(np.uint8), np.diag([4.0, 4.0, 4.0, 1.0])),
+                   tmp / "phase_probe_mask.nii.gz")
+    split = report_stages(timer, "one case, serially")
+    log(f"    device pass less its percentiles (upload, normalize, body mask, fetch): "
+        f"{split['device pass']['total_seconds'] - split['percentiles']['total_seconds']:.4f} s")
 
     # the body-mask chain alone on the card, and its CCL rounds, per volume
     settings = body_mask_settings(cfg.data.body_mask)
     for cid in ids:
-        norm = nifti.load(processed / f"images/{cid}_0000.nii.gz").get_fdata(np.float32)
+        norm = fastio.load_f32(processed / f"images/{cid}_0000.nii.gz")[0]
         padded = torch.from_numpy(pad_volume(norm, cfg.tpu.z_bucket)).cuda()
         valid = _valid_mask(padded.shape, norm.shape, padded.device)
         ms = cuda_ms(lambda: body_mask_core(padded, valid, *settings), iters=3, warmup=1)
@@ -552,6 +585,107 @@ def preprocess_phase(tmp: Path, config: dict) -> tuple:
         log(f"  body-mask chain {tuple(padded.shape)}: {ms:.2f} ms (CUDA events), "
             f"label_propagate {ccl_rounds(closed)} rounds, case {cid}")
     return processed, splits / "val_list.txt", [raw / f"images/{i}_0000.nii.gz" for i in ids]
+
+
+def min_seconds(fn, reps: int = 3) -> float:
+    """The least host-clock seconds of ``reps`` calls of ``fn``."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def host_io_phase(tmp: Path, raw_paths: list, processed: Path, smi: str) -> None:
+    """The host library (``utils/fastio.py``) on the card's host, bit for bit
+    against the plain versions: ``load_f32`` against the codec on the raw
+    phantoms, their processed images and body masks and a scaled int16 file
+    (arrays and headers), ``load_batch_f32`` against the single decodes,
+    ``percentiles`` against ``np.percentile`` and ``quantize_pad`` against the
+    numpy chain on each raw volume; each of the three timed beside its plain
+    version (min of 3), with the inflate's MB/s."""
+    import os
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.ops.sliding_window import bucketed_shape
+    from light_unet_tpu_torch.utils import fastio, nifti
+
+    def plain(path):
+        img = nifti.load(path)
+        return img.get_fdata(np.float32), img.header
+
+    def same(a, b):
+        return a.shape == b.shape and np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+    ids = [p.name.split("_")[0] for p in raw_paths]
+    scaled = tmp / "scaled_int16.nii.gz"
+    img = nifti.Nifti1Image(np.random.default_rng(3).integers(-900, 30000, (96, 80, 120),
+                                                              dtype=np.int16), np.eye(4))
+    img.header.scl_slope, img.header.scl_inter = 0.0123, -4.5
+    nifti.save(img, scaled)
+    files = (list(raw_paths) + [processed / f"images/{c}_0000.nii.gz" for c in ids]
+             + [processed / f"body_masks/{c}.nii.gz" for c in ids] + [scaled])
+    def differs(path):  # on worker threads: both decodes release the GIL in their inflate
+        (got, hdr), (want, whdr) = fastio.load_f32(path), plain(path)
+        return not same(got, want) or hdr.raw != whdr.raw
+
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        bad = [p.name for p, d in zip(files, pool.map(differs, files)) if d]
+    if bad:
+        raise AssertionError(f"native decode differs from the codec: {bad}")
+    singles = [fastio.load_f32(p)[0] for p in raw_paths]
+    batch = fastio.load_batch_f32(raw_paths)
+    if not all(same(a, b) for a, (b, _) in zip(singles, batch)):
+        raise AssertionError("load_batch_f32 differs from the single decodes")
+    log(f"  load_f32 equals the codec bit for bit (arrays and headers) on {len(files)} files: "
+        f"{len(raw_paths)} raw, {len(ids)} processed images, {len(ids)} body masks, one int16 "
+        f"with scl_slope 0.0123 / scl_inter -4.5; load_batch_f32 of the {len(raw_paths)} raw "
+        f"equals the single decodes")
+
+    cfg = Config.from_dict(SERVING)
+    low, high = cfg.data.intensity.clip_percentile_low, cfg.data.intensity.clip_percentile_high
+    for path, image in zip(raw_paths, singles):
+        got = fastio.percentiles(image, (low, high))
+        want = [float(np.percentile(image, low)), float(np.percentile(image, high))]
+        if got != want:
+            raise AssertionError(f"{path.name}: percentiles {got} vs np.percentile {want}")
+        pshape = bucketed_shape(image.shape, tuple(cfg.data.patch_size), cfg.tpu.z_bucket)
+        q = fastio.quantize_pad(image, pshape, *got)
+        if not np.array_equal(q, fastio.quantize_pad_plain(image, pshape, *got)):
+            raise AssertionError(f"{path.name}: quantize_pad differs from the numpy chain")
+    log(f"  percentiles ({low}, {high}) equal np.percentile and quantize_pad equals the numpy "
+        f"chain bit for bit on the {len(raw_paths)} raw volumes (pad {pshape})")
+
+    path, image = raw_paths[0], singles[0]
+    gz = path.read_bytes()
+    payload = len(zlib.decompress(gz, 31))
+    lo, hi = fastio.percentiles(image, (low, high))
+    rows = [
+        ("decode (load_f32)", lambda: fastio.load_f32(path), lambda: plain(path)),
+        ("inflate alone (gunzip)", lambda: fastio.gunzip(gz, payload),
+         lambda: zlib.decompress(gz, 31)),
+        ("percentiles (both ranks)", lambda: fastio.percentiles(image, (low, high)),
+         lambda: [np.percentile(image, low), np.percentile(image, high)]),
+        ("quantize + pad", lambda: fastio.quantize_pad(image, pshape, lo, hi),
+         lambda: fastio.quantize_pad_plain(image, pshape, lo, hi)),
+    ]
+    log(f"  host times, min of 3, one raw volume {SERVING_SHAPE} float32 ({len(gz) / 1e6:.2f} MB "
+        f"gzipped, {payload / 1e6:.2f} MB inflated), {os.cpu_count()} host cores, card {smi}:")
+    for name, native, base in rows:
+        t_native, t_plain = min_seconds(native), min_seconds(base)
+        rate = ""
+        if "inflate" in name or "decode" in name:
+            rate = (f"; native {len(gz) / t_native / 1e6:.1f} MB/s in, {payload / t_native / 1e6:.1f} "
+                    f"MB/s out, plain {payload / t_plain / 1e6:.1f} MB/s out")
+        log(f"    {name}: native {t_native:.4f} s, plain {t_plain:.4f} s "
+            f"({t_plain / t_native:.2f}x){rate}")
+    t_batch = min_seconds(lambda: fastio.load_batch_f32(raw_paths))
+    log(f"    load_batch_f32 of {len(raw_paths)} raw volumes: {t_batch:.4f} s "
+        f"({len(raw_paths) / t_batch:.2f} vol/s; single decodes "
+        f"{len(raw_paths) * min_seconds(lambda: fastio.load_f32(path)):.4f} s)")
 
 
 GATES = [("fused_block", {"fused_block": True, "use_pallas": False}),
@@ -589,7 +723,7 @@ def fused_run(config, state: dict, paths: list, profile: bool = False):
     from light_unet_tpu_torch.models.fused_forward import make_fused_apply
     from light_unet_tpu_torch.models.unet3d import build_model
     from light_unet_tpu_torch.ops.fused import FusedVolumePipeline
-    from light_unet_tpu_torch.utils import nifti
+    from light_unet_tpu_torch.utils import fastio
 
     model = build_model(config.model, torch.bfloat16, inference=True,
                         use_pallas=config.tpu.use_pallas)
@@ -600,7 +734,7 @@ def fused_run(config, state: dict, paths: list, profile: bool = False):
     preps = {}
 
     def load_and_prepare(path):
-        prep = pipe.prepare(nifti.load(path).get_fdata(np.float32))
+        prep = pipe.prepare(fastio.load_f32(path)[0])
         preps[path.name.split("_")[0]] = prep
         return prep
 
@@ -631,25 +765,26 @@ def fused_run(config, state: dict, paths: list, profile: bool = False):
 
 
 def fused_phases(pipe, path: Path) -> None:
-    """One volume through ``pipe`` serially: decode, prepare (host work and
-    upload), dispatch (enqueue), fetch (device work and copy back)."""
+    """One volume through ``pipe`` serially (StageTimer): decode, prepare
+    (percentiles, quantize + pad, upload), dispatch (enqueue), fetch (device
+    work and copy back)."""
     import torch
 
-    from light_unet_tpu_torch.utils import nifti
+    from light_unet_tpu_torch.utils import fastio
+    from light_unet_tpu_torch.utils.tracing import StageTimer
 
+    timer = StageTimer()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    image = nifti.load(path).get_fdata(np.float32)
-    t1 = time.perf_counter()
-    prep = pipe.prepare(image)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    dispatched = pipe.dispatch(prep)
-    t3 = time.perf_counter()
-    pipe.fetch(dispatched)
-    t4 = time.perf_counter()
-    log(f"  one volume, serially: decode {t1 - t0:.3f} s, prepare {t2 - t1:.3f} s, "
-        f"dispatch {t3 - t2:.3f} s, fetch (device work + copy) {t4 - t3:.3f} s")
+    with timer.time("decode"):
+        image = fastio.load_f32(path)[0]
+    with timer.time("prepare"):
+        prep = pipe.prepare(image)
+        torch.cuda.synchronize()
+    with timer.time("dispatch"):
+        dispatched = pipe.dispatch(prep)
+    with timer.time("fetch (device work + copy)"):
+        pipe.fetch(dispatched)
+    report_stages(timer, "one volume, serially")
 
 
 def check_zero_outside_body(config, maps: dict, preps: dict) -> None:
@@ -720,6 +855,55 @@ def serve(config: dict, model_path: Path, data_dir: Path, split: Path, workdir: 
     if len(maps) != N_CASES:
         raise AssertionError(f"expected {N_CASES} prob maps, found {len(maps)}")
     return N_CASES / seconds, maps
+
+
+def serving_phases(config: dict, model_path: Path, data_dir: Path, case_id: str,
+                   workdir: Path) -> None:
+    """One serving case serially through ``Inferencer``'s own steps, each
+    timed with StageTimer and synchronized at its end: the decodes and
+    ``prepare`` inside ``_load_case_inputs``, the dispatch (enqueue), the
+    device work, then the candidate table, fetch, NIfTI write and JSON write
+    inside ``_finalize_case`` (its callees wrapped while it runs)."""
+    from unittest import mock
+
+    import torch
+
+    from light_unet_tpu_torch.core import inferencer as inferencer_mod
+    from light_unet_tpu_torch.utils import fastio
+    from light_unet_tpu_torch.utils.tracing import StageTimer
+
+    inf = inferencer_mod.Inferencer(config, model_path, workdir=str(workdir), device="cuda")
+    threshold = inf.config.validation.default_threshold
+    if not inf.infer_case(case_id, data_dir, threshold):  # first launches, allocator
+        raise AssertionError(f"serving {case_id} failed")
+    timer = StageTimer()
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            with timer.time(name):
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            return out
+        return run
+
+    torch.cuda.synchronize()
+    with mock.patch.object(fastio, "load_f32", timed("decode (image + body mask)", fastio.load_f32)), \
+            mock.patch.object(inf.sw, "prepare", timed("prepare", inf.sw.prepare)):
+        inputs = inf._load_case_inputs(case_id, Path(data_dir))
+    with timer.time("dispatch (enqueue)"):
+        dispatched = inf._dispatch(inputs["prepared"])
+    with timer.time("device work"):
+        torch.cuda.synchronize()
+    with mock.patch.object(inferencer_mod, "component_table_device",
+                           timed("candidate table", inferencer_mod.component_table_device)), \
+            mock.patch.object(inf.sw, "fetch", timed("fetch", inf.sw.fetch)), \
+            mock.patch.object(inferencer_mod.nifti, "save", timed("NIfTI write",
+                                                                  inferencer_mod.nifti.save)), \
+            mock.patch.object(inferencer_mod.json, "dump", timed("JSON write",
+                                                                 inferencer_mod.json.dump)):
+        if not inf._finalize_case(case_id, inputs, dispatched, threshold):
+            raise AssertionError(f"finalizing {case_id} failed")
+    report_stages(timer, f"one serving case ({case_id}, fused_block), serially")
 
 
 def train_config(data_dir: Path, splits: Path, **over) -> dict:
@@ -1189,6 +1373,7 @@ def main(argv=None) -> int:
         return 2
     from light_unet_tpu_torch.models.unet3d import build_model, init_weights
     from light_unet_tpu_torch.ops import _build, block_kernel, norm_kernel
+    from light_unet_tpu_torch.utils import fastio
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1200,13 +1385,28 @@ def main(argv=None) -> int:
     log(f"[device] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | {kind}")
     log(f"[clocks] sm, max sm, mem, power, temperature: {nvidia_smi_clocks()}")
 
-    # 2. build
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s -> {_build.build_dir()}")
+    # 2. build: the CUDA kernels (nvcc) and, beside them, the host library (C++ compiler)
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed_build(fn, *args):
+        t = time.perf_counter()
+        return fn(*args), time.perf_counter() - t
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        host = pool.submit(timed_build, _build.build_host, "fastio")
+        libs, cuda_s = timed_build(_build.build_all)
+        host_lib, host_s = host.result()
+    log(f"[build] {len(libs)} libraries in {cuda_s:.1f} s -> {_build.build_dir()}")
     for name in libs:
         for kernel, usage in ptxas_usage((_build.build_dir() / f"{name}.log").read_text()):
             log(f"  {name}: {kernel}: {usage}")
+    cxx = _build.cxx_command()
+    version = subprocess.run([*cxx, "--version"], capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()[0]
+    log(f"[build] host library {host_lib.name} in {host_s:.1f} s (in parallel) -> "
+        f"{host_lib.parent}: {' '.join(cxx)} ({version}) {' '.join(_build.CXX_FLAGS)}; "
+        f"host cores {os.cpu_count()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = 4 if args.quick else 192
@@ -1236,6 +1436,12 @@ def main(argv=None) -> int:
         # 5. raw -> split -> preprocess on the card
         data_dir, split, raw_paths = preprocess_phase(tmp, SERVING)
 
+        # 5b. the host I/O library against its plain versions, and its times
+        log(f"[host io] utils/fastio.py (csrc/fastio.cpp) on the card's host")
+        t0 = time.perf_counter()
+        host_io_phase(tmp, raw_paths, data_dir, smi)
+        log(f"  host I/O phase {time.perf_counter() - t0:.1f} s")
+
         # 6. the serving path, from the preprocessed tree
         model_path = tmp / "models/best_model.pth"
         model_path.parent.mkdir(parents=True)
@@ -1247,12 +1453,21 @@ def main(argv=None) -> int:
             cfg = json.loads(json.dumps(SERVING))
             cfg["tpu"].update(gates)
             block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
+            decodes = fastio.calls["decode"]
             vps, maps = serve(cfg, model_path, data_dir, split, tmp / name,
                               profile=args.profile and name == "fused_block")
             counts[name] = dict(block=block_kernel.launches, plain_block=block_kernel.plain_calls,
                                 norm=norm_kernel.launches)
             runs[name] = maps
-            log(f"  {name}: {vps:.3f} vol/s on {smi}; launches {counts[name]}")
+            decodes = fastio.calls["decode"] - decodes
+            if decodes != 2 * N_CASES:
+                raise AssertionError(f"{name} serving decoded {decodes} inputs natively, "
+                                     f"not {2 * N_CASES}")
+            log(f"  {name}: {vps:.3f} vol/s on {smi}; launches {counts[name]}; "
+                f"{decodes} native decodes (image + body mask per case)")
+            if name == "fused_block":
+                serving_phases(cfg, model_path, data_dir, split.read_text().split()[0],
+                               tmp / "serving_split")
         check_gates(counts, "serving run")
         check_against_plain(runs, "serving")
 
@@ -1265,15 +1480,20 @@ def main(argv=None) -> int:
             for k, v in gates.items():
                 setattr(cfg.tpu, k, v)
             block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
+            calls = dict(fastio.calls)
             vps, peak, maps, preps, pipe = fused_run(
                 cfg, state, raw_paths, profile=args.profile and name == "fused_block")
             fused_counts[name] = dict(block=block_kernel.launches,
                                       plain_block=block_kernel.plain_calls,
                                       norm=norm_kernel.launches)
+            native = {k: fastio.calls[k] - calls[k] for k in calls}
+            if native != dict(decode=N_CASES, order_stats=N_CASES, quantize_pad=N_CASES):
+                raise AssertionError(f"{name} fused pipeline: host library calls {native}")
             check_zero_outside_body(cfg, maps, preps)
             fused_runs[name] = maps
             log(f"  {name}: {vps:.3f} vol/s on {smi}; peak device memory {peak / 2**30:.2f} GiB; "
-                f"launches {fused_counts[name]}; maps 0 outside the body mask")
+                f"launches {fused_counts[name]}; host library calls {native}; maps 0 outside "
+                f"the body mask")
             if name == "fused_block":
                 fused_phases(pipe, raw_paths[0])
             del preps, pipe

@@ -35,7 +35,7 @@ from light_unet_tpu_torch.models.metrics import get_connected_components
 from light_unet_tpu_torch.models.unet3d import build_model
 from light_unet_tpu_torch.ops.components import bboxes_from_table, component_table_device
 from light_unet_tpu_torch.ops.sliding_window import SlidingWindowInferencer, _u16_to_f32, on_device
-from light_unet_tpu_torch.utils import nifti
+from light_unet_tpu_torch.utils import fastio, nifti
 from light_unet_tpu_torch.utils.device import precision_scope, resolve_device
 
 MAX_DEVICE_COMPONENTS = 64  # device candidate-table cap; host fallback beyond
@@ -141,13 +141,13 @@ class Inferencer:
         return str(p if p.is_absolute() else self.workdir / p)
 
     def _load_case_inputs(self, case_id: str, data_dir: Path):
-        """Decode + prepare one case (runs on a worker thread)."""
+        """Decode (native host library) + prepare one case (runs on a worker
+        thread)."""
         image_files = find_case_files(data_dir, case_id, "image")
         if not image_files:
             print(f"Warning: No image files found for {case_id}")
             return None
-        img = nifti.load(image_files[0])
-        header = img.header
+        image, header = fastio.load_f32(image_files[0])
         spacing = [float(s) for s in header.get_zooms()[:3]]
 
         bm = self.config.data.body_mask
@@ -155,10 +155,10 @@ class Inferencer:
         if bm.apply_to_inference and bm.enabled:
             mask_path = data_dir / "body_masks" / f"{case_id}.nii.gz"
             if mask_path.exists():
-                body_mask = (nifti.load(mask_path).get_fdata(np.float32) > 0.5).astype(np.float32)
+                body_mask = (fastio.load_f32(mask_path)[0] > 0.5).astype(np.float32)
             else:
                 print(f"Warning: Body mask not found for {case_id}")
-        prepared = self.sw.prepare(img.get_fdata(np.float32), post_mask=body_mask)
+        prepared = self.sw.prepare(image, post_mask=body_mask)
         return {"prepared": prepared, "header": header, "spacing": spacing}
 
     @torch.no_grad()

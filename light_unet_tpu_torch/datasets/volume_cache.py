@@ -1,8 +1,8 @@
 """Decode-once volume cache (port of ``light_unet_tpu/datasets/volume_cache.py``).
 
-Volumes are decoded once (the package's NIfTI codec) and kept as float32
-numpy arrays, so patch extraction is a memory slice; an LRU bound is
-available for larger-than-RAM datasets.
+Volumes are decoded once (the native host library, ``utils/fastio.py``)
+and kept as float32 numpy arrays, so patch extraction is a memory slice; an
+LRU bound is available for larger-than-RAM datasets.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Optional
 
 import numpy as np
 
-from light_unet_tpu_torch.utils import nifti
+from light_unet_tpu_torch.utils import fastio
 
 
 class VolumeCache:
@@ -32,8 +32,7 @@ class VolumeCache:
                 self._store.move_to_end(path)
                 data, header = self._store[path]
                 return (data if dtype == np.float32 else data.astype(dtype)), header
-        img = nifti.load(path)
-        data, header = img.get_fdata(np.float32), img.header
+        data, header = fastio.load_f32(path)
         with self._lock:
             self._store[path] = (data, header)
             self._store.move_to_end(path)

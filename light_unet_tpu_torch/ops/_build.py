@@ -1,4 +1,4 @@
-"""Build and load the CUDA kernels under ``csrc/``.
+"""Build and load the CUDA kernels and the host library under ``csrc/``.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Builds
@@ -6,18 +6,26 @@ happen at first use, one ``nvcc`` per source, all started together, into
 ``_kernels_build/<hash>/`` beside this package (git-ignored).  The hash
 covers every source and header and the flags, so an edited source builds
 anew and an unchanged one loads at once.
+
+Each ``csrc/<name>.cpp`` is host code (``build_host``): the C++ compiler
+(``$CXX``, else ``g++``, else ``c++``) builds it at first use into
+``_kernels_build/<its own hash>/lib<name>.so``, one process at a time
+(a file lock), so that the CUDA kernels and the host library never rebuild
+each other and test workers that reach it together compile it once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
@@ -26,6 +34,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# host code: -ffp-contract=off keeps every float32 operation its own rounding
+# (no FMA), as numpy rounds them; no -ffast-math, no -march=native
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-ffp-contract=off"]
 
 # C entries of each library: name -> (argtypes, restype is int)
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -96,6 +107,51 @@ def build_all() -> Dict[str, Path]:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return libs
+
+
+def cxx_command() -> List[str]:
+    """The C++ compiler: ``$CXX`` (split as a shell would), else ``g++``,
+    else ``c++``.  Raises when none is found."""
+    if os.environ.get("CXX"):
+        return shlex.split(os.environ["CXX"])
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return [found]
+    raise RuntimeError("no C++ compiler to build the host library: set $CXX or install g++")
+
+
+def host_hash(name: str) -> str:
+    """Hash of ``csrc/<name>.cpp`` and the host flags alone."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    src = CSRC / f"{name}.cpp"
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_host(name: str) -> Path:
+    """``lib<name>.so`` from ``csrc/<name>.cpp``, compiled at first use under
+    a file lock (one compile across processes).  Raises with the compiler's
+    output if the build fails."""
+    out_dir = BUILD_ROOT / host_hash(name)
+    lib = out_dir / f"lib{name}.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes (or the process dies)
+        if lib.exists():
+            return lib
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [*cxx_command(), *CXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        (out_dir / f"{name}.log").write_text(" ".join(cmd) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            raise RuntimeError(f"host library build failed ({' '.join(cmd)}, exit "
+                               f"{proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, lib)
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -45,6 +45,7 @@ from light_unet_tpu_torch.ops.sliding_window import (
     start_host_copy,
 )
 from light_unet_tpu_torch.ops.sparse_fetch import block_cap
+from light_unet_tpu_torch.utils import fastio
 from light_unet_tpu_torch.utils.device import resolve_device
 
 
@@ -144,7 +145,8 @@ class FusedVolumePipeline:
         self.sparse_block = 8
 
     def prepare(self, image: np.ndarray) -> tuple:
-        """Host side of one volume: clip values, quantize or cast, pad, patch
+        """Host side of one volume: clip values and the uint16 quantize + pad
+        (native host library, ``utils/fastio.py``) or a cast and pad, patch
         grid, and the upload (``non_blocking``)."""
         intensity = self.cfg.data.intensity
         image = np.asarray(image, dtype=np.float32)
@@ -152,19 +154,12 @@ class FusedVolumePipeline:
                                      intensity.clip_percentile_high)
         shape = image.shape
         pshape = bucketed_shape(shape, self.patch_size, self.z_bucket)
-        region = tuple(slice(0, s) for s in shape)
-        if self.transfer_dtype == "uint16":
-            padded = np.zeros(pshape, np.uint16)
-            scale = np.float32(65535.0 / (hi - lo)) if hi > lo else np.float32(0.0)
-            tmp = np.clip(image, lo, hi)
-            tmp -= np.float32(lo)
-            tmp *= scale
-            tmp += np.float32(0.5)  # round to nearest under the truncating cast
-            padded[region] = tmp
+        if self.transfer_dtype == "uint16":  # one native pass: clip, scale, round, pad
+            padded = fastio.quantize_pad(image, pshape, lo, hi)
             host = torch.from_numpy(padded.view(np.int16))
         else:
             padded = np.zeros(pshape, np.float32)
-            padded[region] = image
+            padded[tuple(slice(0, s) for s in shape)] = image
             host = torch.from_numpy(padded)
             if self.transfer_dtype == "bfloat16":
                 host = host.to(torch.bfloat16)

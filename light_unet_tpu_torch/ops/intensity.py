@@ -1,10 +1,11 @@
 """Intensity preprocessing: percentile clip + min-max normalize (port of
 ``light_unet_tpu/ops/intensity.py``).
 
-The clip values are exact host percentiles (``np.percentile``, linear
-interpolation, a Python-float ``q`` on float32 data); the clip and rescale
-run on the device over a volume whose last axis may be zero-padded to a
-``z_bucket`` multiple, and the padding is forced to zero.
+The clip values are exact host percentiles (``np.percentile``'s bits,
+linear interpolation, a Python-float ``q`` on float32 data, from the native
+host library's order statistics, ``utils/fastio.py:percentiles``); the
+clip and rescale run on the device over a volume whose last axis may be
+zero-padded to a ``z_bucket`` multiple, and the padding is forced to zero.
 
 Every step rounds as the JAX package's does: the scale is the float32
 quotient of ``range_max - range_min`` by the float32 ``hi - lo``, and each
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from light_unet_tpu_torch.ops.sliding_window import _valid_mask
+from light_unet_tpu_torch.utils import fastio
 from light_unet_tpu_torch.utils.device import resolve_device
 
 
@@ -69,9 +71,10 @@ def pad_to_bucket(volume: np.ndarray, z_bucket: int) -> Tuple[np.ndarray, np.nda
 
 def compute_clip_values(image: np.ndarray, low_percentile: float = 0.5,
                         high_percentile: float = 99.5) -> Tuple[float, float]:
-    """Host-side exact percentiles (numpy linear interpolation)."""
-    lo = float(np.percentile(image, low_percentile))
-    hi = float(np.percentile(image, high_percentile))
+    """Host-side exact percentiles, ``np.percentile(image, q)`` for each q:
+    one native selection serves both ranks (``utils/fastio.py``), and
+    non-float32 or non-finite input takes two ``np.percentile`` calls."""
+    lo, hi = fastio.percentiles(image, (low_percentile, high_percentile))
     return lo, hi
 
 

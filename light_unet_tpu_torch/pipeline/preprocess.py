@@ -32,7 +32,7 @@ from light_unet_tpu_torch.config import Config
 from light_unet_tpu_torch.datasets.index import read_split_file
 from light_unet_tpu_torch.ops.fused import normalize_and_body_mask
 from light_unet_tpu_torch.ops.intensity import clip_and_normalize
-from light_unet_tpu_torch.utils import nifti
+from light_unet_tpu_torch.utils import fastio, nifti
 
 
 def calculate_voxel_thresholds(spacing, volume_cc_list) -> Dict:
@@ -79,8 +79,7 @@ def preprocess_case(case_id: str, raw_dir, processed_dir, config: Config,
     z_bucket = config.tpu.z_bucket
     metadata_list = []
     for img_file in sorted(image_files):
-        img = nifti.load(img_file)
-        img_data, header = img.get_fdata(np.float32), img.header
+        img_data, header = fastio.load_f32(img_file)
         affine = header.affine()
         spacing = [float(s) for s in header.get_zooms()[:3]]
 

@@ -381,3 +381,23 @@ def test_float32_inferencer_on_the_card_equals_the_cpu(gen, tmp_path, monkeypatc
     assert maps["cpu"].shape == vol.shape and np.ptp(maps["cpu"]) > 0
     assert np.abs(maps["cuda"] - maps["cpu"]).max() <= 1e-4
     assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+
+
+def test_host_library_builds_clean_and_decodes_a_volume_from_the_card(gen, tmp_path, monkeypatch):
+    """On the card's host: ``csrc/fastio.cpp`` builds from an empty build
+    directory, and ``fastio.load_f32`` of a volume computed on the card and
+    written as ``.nii.gz`` equals the plain codec bit for bit."""
+    from light_unet_tpu_torch.ops import _build
+    from light_unet_tpu_torch.utils import fastio, nifti
+
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "_kernels_build")
+    monkeypatch.setattr(fastio, "_lib", None)
+    vol = (torch.randn((40, 36, 50), generator=gen, device="cuda") * 3).cpu().numpy()
+    path = tmp_path / "card.nii.gz"
+    nifti.save(nifti.Nifti1Image(vol, np.diag([4.0, 4.0, 4.0, 1.0])), path)
+    got, hdr = fastio.load_f32(path)
+    assert (tmp_path / "_kernels_build" / _build.host_hash("fastio") / "libfastio.so").exists()
+    img = nifti.load(path)
+    want = img.get_fdata(np.float32)
+    assert got.shape == want.shape and np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert hdr.raw == img.header.raw
