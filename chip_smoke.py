@@ -92,10 +92,28 @@ Phases:
    DLBCL step (a batch with lesion voxels) on the card within 1e-4 relative
    of the CPU's; logged: ms per step per domain, validation s per case,
    peak device memory;
-11. one JSON line of per-kernel numbers (launches summed over the runs under
+11. multi-rank (``parallel/``): (a) a one-rank NCCL group on cuda:0 made
+   by ``maybe_distributed_init``, ``all_reduce`` and
+   ``reduce_scatter_tensor`` of uint8 on the card; (b) on one card 2
+   spawned ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
+   card), on several cards one rank a card over NCCL, with the full-width
+   model: one processed phantom served by ``Inferencer``
+   patch-sharded and slab-sharded (z padded to 288, slabs of 144) in bf16
+   under ``fused_block`` (within 5e-2 of phase 6's map) and in float32 with
+   TF32 off (within 1e-5 of a one-rank float32 map), rank 1 writing
+   nothing, the slab maps exactly 0 outside the body mask and the block
+   kernel launched on both ranks; then 20 data-parallel training steps
+   (``batch_per_device`` 2, case-sharded corpus, K = 4,
+   augmentation and dropout on) and a validation under ``use_pallas``
+   (norm kernel in validation, never in the steps), the ranks' flat
+   parameters bit-identical, and one float32 chain whose first 3 losses are
+   within 1e-4 relative of one process at the same global batch; logged: s
+   a volume on each rank beside one rank's, ms a step, peak memory a rank
+   (ranks sharing one card: no speed-up claim);
+12. one JSON line of per-kernel numbers (launches summed over the runs under
    the kernel's gate: serving, fused pipeline, the training phases'
-   validation and the evaluate phase's serving, each logged), the
-   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+   validation, the evaluate phase's serving and the multi-rank phase, each
+   logged), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Float32 comparisons run with TF32 off.
 """
@@ -824,7 +842,8 @@ def report_profile(prof, wall_s: float) -> None:
 
 def serve(config: dict, model_path: Path, data_dir: Path, split: Path, workdir: Path,
           profile: bool = False):
-    """One ``infer_split`` run; returns (vol/s, {case: prob map})."""
+    """One ``infer_split`` run over the cases of ``split``; returns (vol/s,
+    {case: prob map})."""
     import torch
 
     from light_unet_tpu_torch.core.inferencer import Inferencer
@@ -841,7 +860,8 @@ def serve(config: dict, model_path: Path, data_dir: Path, split: Path, workdir: 
         seconds = time.perf_counter() - t0
     if profile:
         report_profile(prof, seconds)
-    if result["failed"] or result["successful"] != N_CASES:
+    n_cases = len(split.read_text().split())
+    if result["failed"] or result["successful"] != n_cases:
         raise AssertionError(f"serving run failed: {result}")
     maps = {}
     for p in sorted((workdir / "inference/prob_maps").glob("*_prob.nii.gz")):
@@ -852,9 +872,9 @@ def serve(config: dict, model_path: Path, data_dir: Path, split: Path, workdir: 
         if prob.shape != SERVING_SHAPE or not np.isfinite(prob).all():
             raise AssertionError(f"bad prob map {p.name}: {prob.shape}")
         maps[cid] = prob
-    if len(maps) != N_CASES:
-        raise AssertionError(f"expected {N_CASES} prob maps, found {len(maps)}")
-    return N_CASES / seconds, maps
+    if len(maps) != n_cases:
+        raise AssertionError(f"expected {n_cases} prob maps, found {len(maps)}")
+    return n_cases / seconds, maps
 
 
 def serving_phases(config: dict, model_path: Path, data_dir: Path, case_id: str,
@@ -1351,6 +1371,256 @@ def mixed_phase(tmp: Path, data_dir: Path, fl_ids: list, smi: str) -> int:
     return launches["val"]["norm"]
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def nccl_phase() -> None:
+    """11a: a one-rank NCCL group on cuda:0 through ``maybe_distributed_init``;
+    ``all_reduce`` and ``reduce_scatter_tensor`` of uint8 run on the card."""
+    import torch
+
+    from light_unet_tpu_torch.config import TpuConfig
+    from light_unet_tpu_torch.parallel import distributed
+    from light_unet_tpu_torch.parallel.collectives import psum, psum_scatter
+    from light_unet_tpu_torch.parallel.mesh import create_mesh
+
+    cfg = TpuConfig(distributed=True, coordinator_address=f"localhost:{free_port()}",
+                    num_processes=1, process_id=0)
+    if not distributed.maybe_distributed_init(cfg, "cuda:0"):
+        raise AssertionError("maybe_distributed_init made no group")
+    try:
+        mesh = create_mesh(device="cuda:0")
+        x = torch.arange(256, device="cuda:0").to(torch.uint8)
+        summed = psum(x.clone(), mesh)
+        scattered = psum_scatter(x.reshape(16, 16).clone(), mesh)
+        torch.cuda.synchronize()
+        if mesh.backend != "nccl" or not (torch.equal(summed, x)
+                                          and torch.equal(scattered, x.reshape(16, 16))):
+            raise AssertionError(f"one-rank NCCL collectives: backend {mesh.backend}")
+        log(f"  [11a] one-rank NCCL {'.'.join(map(str, torch.cuda.nccl.version()))} group on "
+            f"cuda:0: all_reduce and reduce_scatter_tensor of uint8 ran on the card")
+    finally:
+        distributed.finish()
+
+
+# phase 11b's serving runs: (name, tpu overrides of SERVING)
+MULTIRANK_SERVING = [
+    ("bf16_patch", {}),
+    ("bf16_slab", {"spatial_shard": True}),
+    ("f32_patch", {"compute_dtype": "float32", "fetch_dtype": "float32", "sparse_fetch": False}),
+    ("f32_slab", {"compute_dtype": "float32", "fetch_dtype": "float32", "sparse_fetch": False,
+                  "spatial_shard": True}),
+]
+
+
+def multirank_train_config(data_dir: Path, splits: Path, **tpu) -> dict:
+    """``train_config`` at ``batch_per_device`` 2 with the case-sharded corpus."""
+    return train_config(data_dir, splits, training={"batch_size": 2},
+                        tpu={"batch_per_device": True, "shard_corpus": True, **tpu})
+
+
+def multirank_layout() -> tuple:
+    """(ranks, backend) of phase 11b: one rank a card over NCCL where there
+    are several cards, else 2 ranks sharing cuda:0 over gloo (NCCL refuses
+    two ranks on one card)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return (n, "nccl") if n >= 2 else (2, "gloo")
+
+
+def multirank_rank(rank: int, n: int, init: str, work: str, plan: dict) -> None:
+    """One rank of phase 11b (spawned; on cuda:rank under NCCL, on cuda:0
+    under gloo): the four serving runs through ``Inferencer.infer_split``,
+    then 5 K = 4 chains of data-parallel training in bf16 and the validation
+    after them, then one float32 chain.  Writes what it saw to
+    ``rank{rank}.json``."""
+    import itertools
+
+    import torch
+
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.core.inferencer import Inferencer
+    from light_unet_tpu_torch.core.trainer import Trainer
+    from light_unet_tpu_torch.ops import block_kernel, norm_kernel
+    from light_unet_tpu_torch.parallel import distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = Path(work)
+    fields = dict(distributed=True, coordinator_address=init, num_processes=n, process_id=rank)
+    device = f"cuda:{rank}" if plan["backend"] == "nccl" else "cuda:0"
+    distributed.maybe_distributed_init(Config.from_dict({"tpu": fields}).tpu, device,
+                                       backend=plan["backend"])
+    out = {"rank": rank}
+    try:
+        for name, over in MULTIRANK_SERVING:
+            cfg = json.loads(json.dumps(SERVING))
+            cfg["tpu"].update(over, **fields)
+            inf = Inferencer(cfg, plan["model"], workdir=str(work / f"{name}_r{rank}"),
+                             device=device)
+            block_kernel.launches = block_kernel.plain_calls = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = inf.infer_split(plan["split"], plan["data"])
+            torch.cuda.synchronize()
+            out[name] = dict(seconds=time.perf_counter() - t0, ok=res["successful"],
+                             slab=bool(inf.sw.spatial_shard), block=block_kernel.launches,
+                             plain_block=block_kernel.plain_calls,
+                             peak=torch.cuda.max_memory_allocated())
+            del inf
+
+        data, splits = Path(plan["data"]), Path(plan["splits"])
+        tr = Trainer(Config.from_dict(multirank_train_config(data, splits, **fields)),
+                     workdir=str(work / f"train_r{rank}"), device=device)
+        units = list(itertools.islice(tr._dispatch_units(tr.train_loader), 5))
+        tr.model.train()
+        tr._set_lr(tr.scheduler.current_lr())
+        tr._step_on_batch(units.pop(0))  # first launches, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        norm_kernel.launches = block_kernel.launches = 0
+        t0 = time.perf_counter()
+        losses = tr._flatten_losses([tr._step_on_batch(u) for u in units])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        step_launches = dict(norm=norm_kernel.launches, block=block_kernel.launches)
+        norm_kernel.launches = 0
+        t1 = time.perf_counter()
+        val_loss, metrics = tr.validate(0)
+        torch.cuda.synchronize()
+        out["train"] = dict(
+            steps=len(losses) + 4, ms_per_step=seconds / len(losses) * 1e3, losses=losses,
+            step_launches=step_launches, val_norm=norm_kernel.launches,
+            val_s=time.perf_counter() - t1, val_loss=val_loss, recall=metrics["best_recall"],
+            peak=torch.cuda.max_memory_allocated(), rows=int(tr.corpus.images.shape[0]),
+            global_batch=tr.global_batch)
+        torch.save(tr.opt.flat.cpu(), work / f"flat_{rank}.pt")
+        del tr
+
+        cfg32 = multirank_train_config(data, splits, compute_dtype="float32", use_pallas=False,
+                                       **fields)
+        t32 = Trainer(Config.from_dict(cfg32), workdir=str(work / f"train32_r{rank}"),
+                      device=device)
+        t32.model.train()
+        t32._set_lr(t32.scheduler.current_lr())
+        unit = next(iter(t32._dispatch_units(t32.train_loader)))
+        out["f32_losses"] = t32._flatten_losses([t32._step_on_batch(unit)])
+    finally:
+        (work / f"rank{rank}.json").write_text(json.dumps(out))
+        distributed.finish()
+
+
+def multirank_phase(tmp: Path, data_dir: Path, case_id: str, model_path: Path, bf16_map,
+                    body, one_rank_s: float, smi: str) -> dict:
+    """11b: ranks as ``multirank_layout`` says (on one card: 2 ranks sharing
+    it over gloo).  Serving of ``case_id`` patch- and slab-sharded, in bf16
+    (within 5e-2 of phase 6's one-rank map) and float32 with TF32 off
+    (within 1e-5 of a one-rank float32 map), the slab maps exactly 0 outside
+    the body mask, the block kernel launched on both ranks; 20 steps of
+    data-parallel training (2 a rank, case-sharded corpus, K = 4,
+    augmentation and dropout on) with the norm kernel in the validation
+    after them and never in the steps, the flat parameters of all ranks
+    equal bit for bit, and a float32 chain whose first 3 losses are within
+    1e-4 relative of one process at the same global batch.  Ranks sharing
+    one card make no speed-up claim.  Returns the kernels' launches."""
+    import torch
+
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.core.trainer import Trainer
+    from light_unet_tpu_torch.utils import nifti
+
+    work = tmp / "multirank"
+    work.mkdir()
+    split = work / "split.txt"
+    split.write_text(f"{case_id}\n")
+    # phase 8's training cases, and one of its validation cases: the maps of
+    # a model this young overflow the device sweep (~10 s a case on the host)
+    splits = work / "splits"
+    write_splits(splits, (tmp / "train_splits/train_list.txt").read_text().split(),
+                 (tmp / "train_splits/val_list.txt").read_text().split()[:1])
+
+    n, backend = multirank_layout()
+    # the one-process references: a float32 map, and a float32 chain at batch 2n
+    cfg = json.loads(json.dumps(SERVING))
+    cfg["tpu"].update(MULTIRANK_SERVING[2][1])
+    _, maps32 = serve(cfg, model_path, data_dir, split, work / "one_f32")
+    ref32 = maps32[case_id]
+    one = Trainer(Config.from_dict(train_config(
+        data_dir, splits, training={"batch_size": 2 * n},
+        tpu={"compute_dtype": "float32", "use_pallas": False})),
+        workdir=str(work / "one_train32"), device="cuda")
+    one.model.train()
+    one._set_lr(one.scheduler.current_lr())
+    want32 = one._flatten_losses([one._step_on_batch(next(iter(one._dispatch_units(
+        one.train_loader))))])
+    one.writer.close()
+    del one
+    torch.cuda.empty_cache()
+
+    plan = {"model": str(model_path), "data": str(data_dir), "split": str(split),
+            "splits": str(splits), "backend": backend}
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(multirank_rank, nprocs=n, join=True, args=(
+        n, f"tcp://localhost:{free_port()}", str(work), plan))
+    spawn_s = time.perf_counter() - t0
+    got = [json.loads((work / f"rank{r}.json").read_text()) for r in range(n)]
+    log(f"  [11b] {n} ranks over {backend}")
+
+    bars = {"bf16": (bf16_map, 5e-2), "f32": (ref32, 1e-5)}
+    for name, _ in MULTIRANK_SERVING:
+        dtype, mode = name.split("_")
+        ref, bar = bars[dtype]
+        prob = nifti.load(work / f"{name}_r0/inference/prob_maps/{case_id}_prob.nii.gz").get_fdata(
+            np.float32)
+        err = float(np.abs(prob - ref).max())
+        written = [p for r in range(1, n) for p in (work / f"{name}_r{r}").rglob("*.*")]
+        runs = [g[name] for g in got]
+        log(f"  [11b] {name}: max abs diff {err:.3e} against one rank (bar {bar:g}); "
+            f"{[round(r['seconds'], 2) for r in runs]} s a volume on the ranks (one rank, "
+            f"phase 6: {one_rank_s:.2f} s); block-kernel launches {[r['block'] for r in runs]}; "
+            f"peak memory {[round(r['peak'] / 2**30, 2) for r in runs]} GiB a rank on {smi}")
+        if not err <= bar or written or any(r["ok"] != 1 or r["block"] == 0 or r["plain_block"]
+                                            or r["slab"] != (mode == "slab") for r in runs):
+            raise AssertionError(f"{name}: err {err}, ranks > 0 wrote {written}, runs {runs}")
+        if mode == "slab" and np.any(prob[body < 0.5] != 0):
+            raise AssertionError(f"{name}: map not 0 outside the body mask")
+
+    trains = [g["train"] for g in got]
+    flats = [torch.load(work / f"flat_{r}.pt") for r in range(n)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got[0]["f32_losses"][:3], want32[:3])]
+    same = all(torch.equal(flats[0], f) for f in flats[1:])
+    log(f"  [11b] data-parallel training, global batch {trains[0]['global_batch']} (2 per rank), "
+        f"{trains[0]['rows']} corpus row(s) a rank: {[round(t['ms_per_step'], 1) for t in trains]} "
+        f"ms a step on the ranks over {len(trains[0]['losses'])} steps; losses "
+        f"{[round(x, 5) for x in trains[0]['losses'][:4]]}...; validation "
+        f"{trains[0]['val_s']:.2f} s (norm-kernel launches {[t['val_norm'] for t in trains]}; in "
+        f"the steps {[t['step_launches'] for t in trains]}), val loss "
+        f"{trains[0]['val_loss']:.5f}; peak memory {[round(t['peak'] / 2**30, 2) for t in trains]} "
+        f"GiB a rank on {smi}")
+    log(f"  [11b] float32 first steps, {n} ranks vs one process at batch {2 * n}: "
+        f"{[round(x, 8) for x in got[0]['f32_losses'][:3]]} vs {[round(x, 8) for x in want32[:3]]}, "
+        f"relative diff {max(rel):.2e} (bar 1e-4); flat parameters of the ranks bit-identical: "
+        f"{same}; phase 11b spawn {spawn_s:.1f} s")
+    if (any(t["losses"] != trains[0]["losses"] for t in trains)
+            or not np.isfinite(trains[0]["losses"]).all()
+            or any(t["step_launches"] != dict(norm=0, block=0) or t["val_norm"] == 0
+                   for t in trains)):
+        raise AssertionError(f"data-parallel training: {trains}")
+    if not same or any(g["f32_losses"] != got[0]["f32_losses"] for g in got):
+        raise AssertionError("the ranks' parameters or float32 losses differ")
+    if not max(rel) <= 1e-4:
+        raise AssertionError(f"float32 data-parallel steps differ from one process: {rel}")
+    return dict(block=sum(g[name]["block"] for g in got for name, _ in MULTIRANK_SERVING),
+                norm=sum(t["val_norm"] for t in trains))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1463,6 +1733,8 @@ def main(argv=None) -> int:
             if decodes != 2 * N_CASES:
                 raise AssertionError(f"{name} serving decoded {decodes} inputs natively, "
                                      f"not {2 * N_CASES}")
+            if name == "fused_block":
+                serving_vps = vps
             log(f"  {name}: {vps:.3f} vol/s on {smi}; launches {counts[name]}; "
                 f"{decodes} native decodes (image + body mask per case)")
             if name == "fused_block":
@@ -1518,7 +1790,18 @@ def main(argv=None) -> int:
         mixed_val_norm = mixed_phase(tmp, data_dir, ids, smi)
         log(f"  mixed phase {time.perf_counter() - t0:.1f} s on {smi}")
 
-    # 11. results
+        # 11. multi-rank on one card: NCCL with one rank, then 2 gloo ranks
+        log(f"[multi-rank] one-rank NCCL group, then {multirank_layout()} (ranks, backend): "
+            f"{ids[0]} served patch- and slab-sharded, data-parallel training")
+        t0 = time.perf_counter()
+        nccl_phase()
+        body = fastio.load_f32(data_dir / f"body_masks/{ids[0]}.nii.gz")[0]
+        multirank_counts = multirank_phase(tmp, data_dir, ids[0], model_path,
+                                           runs["fused_block"][ids[0]], body,
+                                           1.0 / serving_vps, smi)
+        log(f"  multi-rank phase {time.perf_counter() - t0:.1f} s on {smi}")
+
+    # 12. results
     def total(rows, key, weights=None):
         return sum(r[key] * (weights or {}).get(k, 1) for k, r in rows.items())
 
@@ -1532,7 +1815,7 @@ def main(argv=None) -> int:
             "source": "light_unet_tpu_torch/csrc/residual_block.cu",
             "replaces": "light_unet_tpu/ops/pallas_block.py:417",
             "launches": (counts["fused_block"]["block"] + fused_counts["fused_block"]["block"]
-                         + eval_counts["block"]),
+                         + eval_counts["block"] + multirank_counts["block"]),
             "max_abs_err": block_err,
             "ms": total(block_rows, "ms"), "plain_ms": total(block_rows, "plain_ms"),
             "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in block_rows.values()),
@@ -1544,7 +1827,7 @@ def main(argv=None) -> int:
             "source": "light_unet_tpu_torch/csrc/instance_norm.cu",
             "replaces": "light_unet_tpu/ops/pallas_kernels.py:118",
             "launches": (counts["use_pallas"]["norm"] + fused_counts["use_pallas"]["norm"]
-                         + train_val_norm + mixed_val_norm),
+                         + train_val_norm + mixed_val_norm + multirank_counts["norm"]),
             "max_abs_err": norm_err[torch.bfloat16],
             "ms": total(norm_rows, "ms", norm_calls),
             "plain_ms": total(norm_rows, "plain_ms", norm_calls),
@@ -1556,9 +1839,11 @@ def main(argv=None) -> int:
     ]
     log(f"[result] launches: residual_block = serving {counts['fused_block']['block']} + fused "
         f"pipeline {fused_counts['fused_block']['block']} + evaluate-phase serving "
-        f"{eval_counts['block']}; instance_norm_leaky = serving {counts['use_pallas']['norm']} + "
+        f"{eval_counts['block']} + multi-rank serving {multirank_counts['block']}; "
+        f"instance_norm_leaky = serving {counts['use_pallas']['norm']} + "
         f"fused pipeline {fused_counts['use_pallas']['norm']} + training-phase validation "
-        f"{train_val_norm} + mixed-training validation {mixed_val_norm}")
+        f"{train_val_norm} + mixed-training validation {mixed_val_norm} + multi-rank "
+        f"validation {multirank_counts['norm']}")
     log("[result] per-kernel times are sums over one 192-patch bf16 forward; "
         f"instance_norm_leaky device time {total(norm_rows, 'device_ms', norm_calls):.4f} ms "
         f"(CUDA events {total(norm_rows, 'ms', norm_calls):.4f} ms)")

@@ -6,6 +6,17 @@ checkpoint), ``inference``, ``evaluate``, and ``all`` for the five in that
 order; ``bench`` raises ``NotImplementedError`` naming its ROADMAP item.
 ``--device`` (default ``cuda``) is where every stage runs.
 
+A multi-process run (``tpu.distributed: true``, or ``tpu.num_processes`` > 1)
+makes its process group before the first stage
+(``parallel/distributed.py:maybe_distributed_init``); each rank takes
+``cuda:LOCAL_RANK`` unless ``--device`` names a device index or the CPU.
+The host stages (split, preprocess, evaluate) run on rank 0, train and
+inference on every rank, and the ranks meet at a barrier after each stage.
+With torchrun, ``tpu.distributed: true`` alone is enough:
+
+    torchrun --nproc_per_node 4 -m light_unet_tpu_torch.cli --mode train \
+        --config <yaml with tpu.distributed: true> --processed_dir data/processed
+
     python -m light_unet_tpu_torch.cli --mode split --data_root data/raw --splits_dir data/splits
     python -m light_unet_tpu_torch.cli --mode preprocess --split val --data_root data/raw \\
         --processed_dir data/processed --splits_dir data/splits
@@ -25,7 +36,7 @@ from pathlib import Path
 from light_unet_tpu_torch.config import Config
 
 _NOT_PORTED = {
-    "bench": "ROADMAP queue 1 (a benchmark of the port is later work)",
+    "bench": "ROADMAP queue 1, item 16 (a benchmark of the port is later work)",
 }
 
 
@@ -83,6 +94,13 @@ def run(argv=None) -> int:
         raise NotImplementedError(
             f"--mode {args.mode} is not ported to PyTorch yet: {_NOT_PORTED[args.mode]}")
     config = _load_config(args)
+    from light_unet_tpu_torch.parallel import distributed
+
+    if distributed.wants_distributed(config.tpu):
+        if args.device == "cuda":  # a bare "cuda": this rank's card
+            rank = distributed.init_args(config.tpu)[2]
+            args.device = f"cuda:{distributed.local_rank(rank)}"
+        distributed.maybe_distributed_init(config.tpu, args.device)
     workdir = Path(args.workdir)
     # the standard directory tree (main.py:71-77 of the reference)
     for d in (args.data_root, args.processed_dir, args.splits_dir, workdir / "models/checkpoints",
@@ -94,7 +112,12 @@ def run(argv=None) -> int:
     split_file = args.split_file or str(Path(args.splits_dir) / "val_list.txt")
     rc = 0
     for stage in stages:
-        rc = max(rc, _run_stage(stage, args, config, workdir, split_file))
+        if stage in ("split", "preprocess", "evaluate") and distributed.world_rank() != 0:
+            print(f"rank {distributed.world_rank()}: stage {stage} runs on rank 0")
+        else:
+            rc = max(rc, _run_stage(stage, args, config, workdir, split_file))
+        distributed.barrier()
+    distributed.finish()
     return rc
 
 

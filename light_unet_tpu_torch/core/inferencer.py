@@ -15,6 +15,11 @@ every InstanceNorm through the fused norm kernel.  In float32 every launch
 runs without TF32 (``utils/device.py:precision_scope``), as the JAX package
 runs its float32 model at ``precision="highest"``; ``tpu.profile_dir``
 traces ``infer_split``.
+
+In a multi-process run (``parallel/mesh.py:mesh_from_config``) every case
+fans out over the world's ranks: patch-sharded, or slab-sharded with
+``tpu.spatial_shard``.  Every rank computes; the first rank alone writes
+``{id}_prob.nii.gz`` and ``{id}_bboxes.json``.
 """
 
 from __future__ import annotations
@@ -34,7 +39,13 @@ from light_unet_tpu_torch.models.fused_forward import make_fused_apply
 from light_unet_tpu_torch.models.metrics import get_connected_components
 from light_unet_tpu_torch.models.unet3d import build_model
 from light_unet_tpu_torch.ops.components import bboxes_from_table, component_table_device
-from light_unet_tpu_torch.ops.sliding_window import SlidingWindowInferencer, _u16_to_f32, on_device
+from light_unet_tpu_torch.ops.sliding_window import (
+    SlabShards,
+    SlidingWindowInferencer,
+    _u16_to_f32,
+    on_device,
+)
+from light_unet_tpu_torch.parallel.mesh import mesh_from_config
 from light_unet_tpu_torch.utils import fastio, nifti
 from light_unet_tpu_torch.utils.device import precision_scope, resolve_device
 
@@ -113,6 +124,9 @@ class Inferencer:
             print(f"Best metric: {meta['best_metric']:.4f}")
 
         apply_fn = make_fused_apply(self.model) if cfg.tpu.fused_block else self.model
+        # fan every case out over the ranks (none: one device)
+        self.mesh = mesh_from_config(cfg.tpu, device=self.device)
+        self.is_root = self.mesh is None or self.mesh.is_root
         self.sw = SlidingWindowInferencer(
             apply_fn,
             patch_size=tuple(cfg.data.patch_size),
@@ -124,7 +138,7 @@ class Inferencer:
             # block-sparse fetch only pays off when the map is fetched at all
             sparse_fetch=bool(cfg.tpu.sparse_fetch) and self.save_prob_maps,
             sparse_fetch_frac=cfg.tpu.sparse_fetch_frac,
-            mesh_shape=cfg.tpu.mesh_shape,
+            mesh=self.mesh,
             spatial_shard=bool(cfg.tpu.spatial_shard),
             # the copy back starts at dispatch only when the map is saved
             host_prefetch=self.save_prob_maps,
@@ -133,8 +147,9 @@ class Inferencer:
 
         self.prob_maps_dir = Path(self._resolve(cfg.output.prob_maps_dir))
         self.bboxes_dir = Path(self._resolve(cfg.output.bboxes_dir))
-        self.prob_maps_dir.mkdir(parents=True, exist_ok=True)
-        self.bboxes_dir.mkdir(parents=True, exist_ok=True)
+        if self.is_root:
+            self.prob_maps_dir.mkdir(parents=True, exist_ok=True)
+            self.bboxes_dir.mkdir(parents=True, exist_ok=True)
 
     def _resolve(self, p) -> str:
         p = Path(p)
@@ -164,9 +179,16 @@ class Inferencer:
     @torch.no_grad()
     def _finalize_case(self, case_id: str, inputs, dispatched, threshold: float) -> bool:
         """Candidate table on the device; fetch + save the map unless
-        ``save_prob_maps=False``; write the bboxes JSON."""
+        ``save_prob_maps=False``; write the bboxes JSON.  On a mesh the first
+        rank does this (in slab mode after gathering the slabs, which every
+        rank joins); the others return at once."""
         cfg = self.config
         prob_dev, vol_shape = dispatched
+        if isinstance(prob_dev, SlabShards):
+            prob_dev = prob_dev.gather()
+            dispatched = (prob_dev, vol_shape)
+        if not self.is_root:
+            return True
         prob_dev = on_device(prob_dev)  # the dense map stays on the device
         if prob_dev.dtype == torch.int16:  # uint16 levels -> probabilities
             prob_dev = _u16_to_f32(prob_dev) * (1.0 / 65535.0)

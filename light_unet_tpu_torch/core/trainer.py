@@ -1,4 +1,4 @@
-"""Training engine on one device (port of ``light_unet_tpu/core/trainer.py``).
+"""Training engine (port of ``light_unet_tpu/core/trainer.py``).
 
 Three modes, as ``datasets/loader.py:get_data_loader`` tags them:
 
@@ -45,7 +45,23 @@ loaders map each sampler's case index to its row.  With the corpus,
 K steps enqueued back to back; losses and finite-update flags stay on the
 device until the epoch's bulk sync, as in the JAX package.
 
-More than one device waits for a later slice (ROADMAP queue 1, item 10).
+Data parallelism (``parallel/mesh.py``, one process per GPU, as many ranks
+as ``mesh_from_config`` keeps): every rank runs the same sampler streams
+with the same seed and takes its rows of each global batch
+(``shard_batch``); with ``tpu.shard_corpus`` the corpus is case-sharded and
+the corner batch is routed to the owner ranks
+(``gather_patches_sharded``).  The augmentation and dropout draws are the
+global batch's, each rank keeping its rows, and the loss is formed from
+sums over all ranks (``models/losses.py:get_loss_function``); the
+gradients are summed over the ranks on ``GuardedAdamW``'s flat buffer in
+one all-reduce, so the finite flag and the parameters are the same on
+every rank, and N ranks train as one process at the same global batch.
+``tpu.batch_per_device`` makes ``training.batch_size`` per rank
+(``scale_lr_with_devices``: the linear learning-rate rule).  Validation
+runs on the same mesh (patch-sharded sliding window); its numbers are
+broadcast from the first rank so that every rank takes the same
+decisions, and only the first rank writes checkpoints, the best model,
+TensorBoard scalars and the history.
 """
 
 from __future__ import annotations
@@ -67,7 +83,7 @@ from light_unet_tpu_torch.core.checkpoint import (
 )
 from light_unet_tpu_torch.core.inferencer import COMPUTE_DTYPES
 from light_unet_tpu_torch.core.schedule import LRScheduler
-from light_unet_tpu_torch.datasets.device_corpus import gather_patches
+from light_unet_tpu_torch.datasets.device_corpus import gather_patches, gather_patches_sharded
 from light_unet_tpu_torch.datasets.loader import get_data_loader
 from light_unet_tpu_torch.datasets.volume_cache import VolumeCache
 from light_unet_tpu_torch.models.losses import get_loss_function, get_masked_loss_function
@@ -85,6 +101,15 @@ from light_unet_tpu_torch.ops.sliding_window import (
     on_device,
 )
 from light_unet_tpu_torch.ops.val_metrics import dequantize_prob
+from light_unet_tpu_torch.parallel.collectives import broadcast, psum
+from light_unet_tpu_torch.parallel.mesh import (
+    batch_rows,
+    check_same,
+    effective_batch_size,
+    mesh_from_config,
+    shard_batch,
+    shard_chain,
+)
 from light_unet_tpu_torch.utils.device import precision_scope, resolve_device
 
 EPS = 1e-8
@@ -101,11 +126,15 @@ class GuardedAdamW:
     elementwise kernels whatever the number of tensors.  A step whose loss
     or any gradient is not finite leaves parameters, moments and the step
     count as they were; the flag stays on the device.  The learning rate
-    and weight decay are device scalars (``set_lr`` changes the value)."""
+    and weight decay are device scalars (``set_lr`` changes the value).
+    With a ``mesh`` the gradients are summed over its ranks (one all-reduce
+    of the flat gradient) before the update."""
 
     def __init__(self, params: List[torch.nn.Parameter], learning_rate: float,
-                 weight_decay: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 weight_decay: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 mesh=None):
         self.params = list(params)
+        self.mesh = mesh
         dev = self.params[0].device
         total = sum(p.numel() for p in self.params)
         self.flat = torch.empty(total, dtype=torch.float32, device=dev)
@@ -131,6 +160,8 @@ class GuardedAdamW:
         """Apply one update from ``grads`` (one per parameter); returns the
         float32 0/1 finite flag (0: the step was skipped)."""
         g = torch.cat([x.reshape(-1).float() for x in grads])
+        if self.mesh is not None:
+            psum(g, self.mesh)
         ok = torch.isfinite(loss) & torch.isfinite(g).all()
         mu = (1 - self.b1) * g + self.b1 * self.mu
         nu = (1 - self.b2) * (g * g) + self.b2 * self.nu
@@ -231,10 +262,27 @@ class Trainer:
         cfg = self.config
         self.workdir = Path(workdir) if workdir else Path(".")
         self.device = resolve_device(device)
-        if cfg.tpu.mesh_shape is not None and int(np.prod(cfg.tpu.mesh_shape)) > 1:
-            raise NotImplementedError(
-                "training on more than one device (tpu.mesh_shape) is not ported yet: "
-                "ROADMAP queue 1, item 10")
+
+        # --- mesh (before the optimizer: the LR rule needs the rank count) ---
+        mesh = mesh_from_config(cfg.tpu, batch_size=cfg.training.batch_size, device=self.device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.is_root = self.mesh is None or self.mesh.is_root
+        self.global_batch = effective_batch_size(cfg.tpu, cfg.training.batch_size, self.mesh)
+        # this rank's rows of every global batch (lo, hi, total)
+        rows = batch_rows(self.mesh, self.global_batch)
+        self.rows = None if self.mesh is None else (rows.start, rows.stop, self.global_batch)
+        self.base_lr = cfg.training.learning_rate
+        if self.global_batch != cfg.training.batch_size:
+            n_dev = self.global_batch // cfg.training.batch_size
+            if getattr(cfg.tpu, "scale_lr_with_devices", False):
+                self.base_lr = self.base_lr * n_dev
+                print(f"batch_per_device: global batch = {cfg.training.batch_size} x "
+                      f"{n_dev} devices = {self.global_batch}; learning rate scaled "
+                      f"linearly {cfg.training.learning_rate} -> {self.base_lr}")
+            else:
+                print(f"batch_per_device: global batch = {cfg.training.batch_size} x "
+                      f"{n_dev} devices = {self.global_batch} (learning rate "
+                      f"unscaled; set tpu.scale_lr_with_devices for the linear rule)")
 
         seed = cfg.experiment.seed
         # augmentation draws and dropout masks, in step order
@@ -245,17 +293,16 @@ class Trainer:
         self.model = build_model(cfg.model, self.compute_dtype, use_pallas=cfg.tpu.use_pallas)
         init_weights(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device)
-        set_dropout_generator(self.model, self.gen)
+        set_dropout_generator(self.model, self.gen, self.rows)
         counts = count_parameters(self.model)
         print(f"Model parameters: {counts['total']:,} total, {counts['trainable']:,} trainable")
 
-        self.loss_fn = get_loss_function(cfg.loss)
+        self.loss_fn = get_loss_function(cfg.loss, self.mesh)
         self._masked_loss = get_masked_loss_function(cfg.loss)
 
-        self.global_batch = cfg.training.batch_size
-        self.base_lr = cfg.training.learning_rate
+        # every rank seeds the same parameters: nothing to broadcast
         self.opt = GuardedAdamW(list(self.model.parameters()), self.base_lr,
-                                cfg.training.weight_decay)
+                                cfg.training.weight_decay, mesh=self.mesh)
         self.scheduler = LRScheduler(
             cfg.training.scheduler, self.base_lr,
             use_warmup=cfg.training.use_warmup, warmup_epochs=cfg.training.warmup_epochs,
@@ -349,16 +396,19 @@ class Trainer:
             # with the device sweep the map is consumed on the device; a
             # host-fallback case pays one unprefetched fetch instead
             host_prefetch=not bool(getattr(cfg.tpu, "device_val_metrics", True)),
+            mesh=self.mesh,
             device=self.device,
         )
 
-        # --- logging / checkpoints ------------------------------------------
-        Path(self._resolve(cfg.output.log_dir)).mkdir(parents=True, exist_ok=True)
-        tb_dir = self._resolve(cfg.output.tensorboard_dir)
-        Path(tb_dir).mkdir(parents=True, exist_ok=True)
-        self.writer = _make_writer(tb_dir)
+        # --- logging / checkpoints (the first rank writes) -------------------
         self.checkpoint_dir = Path(self._resolve(cfg.output.checkpoint_dir))
-        self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
+        self.writer = _NullWriter()
+        if self.is_root:
+            Path(self._resolve(cfg.output.log_dir)).mkdir(parents=True, exist_ok=True)
+            tb_dir = self._resolve(cfg.output.tensorboard_dir)
+            Path(tb_dir).mkdir(parents=True, exist_ok=True)
+            self.writer = _make_writer(tb_dir)
+            self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
 
         # --- training state ---------------------------------------------------
         self.start_epoch = 0
@@ -400,10 +450,14 @@ class Trainer:
                   f"by the joint HBM ledger")
             budget = ledger_room
         cases = [case for s in self._samplers for case in s.cases]
+        # tpu.shard_corpus: each rank holds ~1/D of the cases, budget per rank
+        shard = bool(getattr(cfg.tpu, "shard_corpus", False)) and self.mesh is not None
         corpus = DeviceCorpus.build(cases, self.cache, tuple(cfg.data.patch_size), budget,
-                                    evict=True, device=self.device)
+                                    evict=True, device=self.device, mesh=self.mesh, shard=shard)
         if corpus is None:
             return
+        if not corpus.sharded:  # built from the same files on every rank
+            check_same([corpus.images, corpus.labels], self.mesh, "the training corpora")
         self.corpus = corpus
         batch, n_fl = self.global_batch, len(self._samplers[0].cases)
         if self.mode == "fl_epoch_plus_dlbcl":
@@ -441,7 +495,7 @@ class Trainer:
         both device scalars."""
         with torch.no_grad():
             images, labels = self._dequantize(images, labels)
-            images, labels = self.augment_fn(self.gen, images, labels)
+            images, labels = self.augment_fn(self.gen, images, labels, self.rows)
         probs = self.model(images)
         loss = self.loss_fn(probs, labels)
         grads = torch.autograd.grad(loss, self.params)
@@ -453,22 +507,28 @@ class Trainer:
 
     def _step_on_batch(self, batch):
         """Steps on one dispatch unit: a [K,B,4] corner chain, a [B,4] corner
-        array, or an (images, labels) host pair.  Returns the loss(es) as
-        un-synchronized device tensors; the finite flags queue on
-        ``self._epoch_oks``."""
+        array, or an (images, labels) host pair, each of the global batch.
+        Returns the loss(es) as un-synchronized device tensors; the finite
+        flags queue on ``self._epoch_oks``."""
         with precision_scope(self.compute_dtype):
             if not isinstance(batch, np.ndarray):
-                images, labels = batch
+                images, labels = shard_batch(batch, self.mesh)
                 loss, ok = self._step(self._upload(images), self._upload(labels))
                 self._epoch_oks.append(ok)
                 return loss
             patch = tuple(self.config.data.patch_size)
-            corners = self._upload(batch)  # one upload for the whole chain
-            chain = corners if batch.ndim == 3 else corners[None]
+            chain = batch if batch.ndim == 3 else batch[None]
+            # a case-sharded corpus routes the whole batch; else this rank's rows
+            routed = self.corpus.sharded
+            chain = self._upload(chain if routed else shard_chain(chain, self.mesh))
             losses, oks = [], []
             for k in range(chain.shape[0]):
-                images, labels = gather_patches(self.corpus.images, self.corpus.labels,
-                                                chain[k], patch)
+                if routed:
+                    images, labels = gather_patches_sharded(
+                        self.corpus.images, self.corpus.labels, chain[k], patch, self.mesh)
+                else:
+                    images, labels = gather_patches(self.corpus.images, self.corpus.labels,
+                                                    chain[k], patch)
                 loss, ok = self._step(images, labels)
                 losses.append(loss)
                 oks.append(ok)
@@ -835,6 +895,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def save_checkpoint_file(self, epoch: int, is_best: bool = False) -> None:
+        if not self.is_root:
+            return
         cfg = self.config
         meta = {
             "epoch": epoch,
@@ -862,11 +924,20 @@ class Trainer:
 
     def resume(self, path=None) -> bool:
         """Restore parameters, optimizer, scheduler, counters and random
-        streams from ``path`` (default: the latest periodic checkpoint)."""
+        streams from ``path`` (default: the latest periodic checkpoint).
+
+        On a mesh every rank reads the file itself (it holds the random
+        streams too), so all of them must find it and restore the same
+        state; else every rank raises, none waits on the others."""
+        explicit = path is not None
         if path is None:
             path = latest_checkpoint(self.checkpoint_dir)
-            if path is None:
-                return False
+        found = path is not None and Path(path).is_file()
+        check_same([float(found)], self.mesh, "the checkpoints found to resume from")
+        if not found:
+            if explicit:
+                raise FileNotFoundError(f"no checkpoint at {path}")
+            return False
         ckpt = load_training_checkpoint(path)
         self.model.load_state_dict(ckpt["model_state_dict"], strict=True)
         self.opt.load_state_dict(ckpt["optimizer_state_dict"])
@@ -886,8 +957,24 @@ class Trainer:
             self.gen.set_state(rng["generator"])
             for stream, state in zip(self.streams, rng["samplers"], strict=True):
                 stream.bit_generator.state = state
+        check_same([self.start_epoch, self._global_step, self.opt.flat, self.opt.mu,
+                    self.opt.nu, self.opt.count], self.mesh, "the resumed states")
         print(f"Resumed from {path} at epoch {self.start_epoch}")
         return True
+
+    _AGREED = ("best_recall", "best_dsc_macro", "lesion_wise_precision", "fp_per_case",
+               "best_threshold")
+
+    def _agree(self, val_loss: float, metrics: Dict) -> Tuple[float, Dict]:
+        """The first rank's validation numbers on every rank, so that model
+        selection, the plateau schedule and early stopping decide alike and
+        no rank leaves the epoch loop alone."""
+        if self.mesh is None:
+            return val_loss, metrics
+        vals = torch.tensor([val_loss] + [float(metrics.get(k, 0.0)) for k in self._AGREED],
+                            dtype=torch.float64, device=self.device)
+        vals = broadcast(vals, self.mesh).tolist()
+        return vals[0], {**metrics, **dict(zip(self._AGREED, vals[1:]))}
 
     # ------------------------------------------------------------------
     def train(self) -> Dict:
@@ -911,7 +998,7 @@ class Trainer:
             train_loss = self.train_epoch(epoch)
 
             if (epoch + 1) % validate_every == 0:
-                val_loss, val_metrics = self.validate(epoch)
+                val_loss, val_metrics = self._agree(*self.validate(epoch))
                 current_lr = self.scheduler.current_lr()
                 current_recall = val_metrics.get("best_recall", 0.0)
                 current_dsc = val_metrics.get("best_dsc_macro", 0.0)
@@ -971,9 +1058,10 @@ class Trainer:
                     self._set_lr(self.scheduler.step(None))
 
         self.writer.close()
-        history_path = Path(self._resolve(cfg.output.log_dir)) / "training_history.json"
-        with open(history_path, "w") as f:
-            json.dump(self.history, f, indent=2)
+        if self.is_root:
+            history_path = Path(self._resolve(cfg.output.log_dir)) / "training_history.json"
+            with open(history_path, "w") as f:
+                json.dump(self.history, f, indent=2)
         return {
             "best_recall": self.best_recall,
             "best_dsc": self.best_dsc,

@@ -8,6 +8,13 @@
 All losses take **probabilities** (the sigmoid is inside the model) and
 flatten across the whole batch before reducing: TP/FP/FN are global sums.
 Reductions run in float32.
+
+On a data-parallel mesh each rank holds some rows of the batch, and the
+mean of per-rank losses is not the loss (FTL and Dice are ratios of sums
+over the whole batch).  The training loss (``get_loss_function``) is
+therefore formed from the batch sums: with a mesh they are summed over the
+ranks first (``parallel/collectives.py:global_sum``, identity backward),
+so every rank computes the scalar one process would.
 """
 
 from __future__ import annotations
@@ -16,6 +23,9 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from light_unet_tpu_torch.parallel.collectives import global_sum
+from light_unet_tpu_torch.parallel.mesh import mesh_size
 
 _BCE_EPS = 1e-7  # clamp for log() on probabilities
 
@@ -32,37 +42,29 @@ def _focal_pow(base: torch.Tensor, gamma: float) -> torch.Tensor:
     return torch.where(pos, safe ** gamma, torch.zeros_like(base))
 
 
-def focal_tversky_loss(pred, target, alpha=0.7, beta=0.3, gamma=0.75, smooth=1e-6):
-    """Focal Tversky loss on probabilities; global flatten over the batch."""
-    pred = pred.reshape(-1).float()
-    target = target.reshape(-1).float()
-    tp = torch.sum(pred * target)
-    fp = torch.sum(pred * (1.0 - target))
-    fn = torch.sum((1.0 - pred) * target)
+def _batch_sums(pred, target, with_bce: bool) -> torch.Tensor:
+    """The sums a loss is formed from, over the flattened batch: tp, fp,
+    fn, sum(pred), sum(target) and, ``with_bce``, the summed BCE terms."""
+    p = pred.reshape(-1).float()
+    t = target.reshape(-1).float()
+    parts = [torch.sum(p * t), torch.sum(p * (1.0 - t)), torch.sum((1.0 - p) * t),
+             torch.sum(p), torch.sum(t)]
+    if with_bce:
+        pc = torch.clamp(p, _BCE_EPS, 1.0 - _BCE_EPS)
+        parts.append(-torch.sum(t * torch.log(pc) + (1.0 - t) * torch.log(1.0 - pc)))
+    return torch.stack(parts)
+
+
+def _ftl(tp, fp, fn, alpha, beta, gamma, smooth=1e-6):
+    """Focal Tversky loss from the batch's tp, fp and fn."""
     tversky = (tp + smooth) / (tp + alpha * fn + beta * fp + smooth)
     return _focal_pow(1.0 - tversky, gamma)
 
 
-def bce_loss(pred, target):
-    """Binary cross-entropy on probabilities (``nn.BCELoss`` mean)."""
-    pred = torch.clamp(pred.reshape(-1).float(), _BCE_EPS, 1.0 - _BCE_EPS)
-    target = target.reshape(-1).float()
-    return -torch.mean(target * torch.log(pred) + (1.0 - target) * torch.log(1.0 - pred))
-
-
-def combined_loss(pred, target, ftl_weight=0.8, bce_weight=0.2, alpha=0.7, beta=0.3, gamma=0.75):
-    """ftl_weight * FocalTversky + bce_weight * BCE."""
-    ftl = focal_tversky_loss(pred, target, alpha=alpha, beta=beta, gamma=gamma)
-    return ftl_weight * ftl + bce_weight * bce_loss(pred, target)
-
-
-def dice_loss(pred, target, smooth=1e-6):
-    """1 - soft Dice, global flatten over the batch."""
-    pred = pred.reshape(-1).float()
-    target = target.reshape(-1).float()
-    intersection = torch.sum(pred * target)
-    union = torch.sum(pred) + torch.sum(target)
-    return 1.0 - (2.0 * intersection + smooth) / (union + smooth)
+def focal_tversky_loss(pred, target, alpha=0.7, beta=0.3, gamma=0.75, smooth=1e-6):
+    """Focal Tversky loss on probabilities; global flatten over the batch."""
+    tp, fp, fn = _batch_sums(pred, target, False)[:3].unbind()
+    return _ftl(tp, fp, fn, alpha, beta, gamma, smooth)
 
 
 def masked_loss(pred, target, valid_mask, *, name, alpha, beta, gamma,
@@ -80,8 +82,7 @@ def masked_loss(pred, target, valid_mask, *, name, alpha, beta, gamma,
         tp = torch.sum(pred * target)
         fp = torch.sum(pred * (1.0 - target) * m)
         fn = torch.sum((1.0 - pred) * target)
-        tversky = (tp + 1e-6) / (tp + alpha * fn + beta * fp + 1e-6)
-        return _focal_pow(1.0 - tversky, gamma)
+        return _ftl(tp, fp, fn, alpha, beta, gamma)
 
     def bce():
         p = torch.clamp(pred, _BCE_EPS, 1.0 - _BCE_EPS)
@@ -147,26 +148,25 @@ def host_val_loss(pred, target, loss_cfg) -> float:
     raise ValueError(f"Unknown loss function: {loss_cfg.name}")
 
 
-def get_loss_function(loss_cfg) -> Callable:
-    """``fn(pred, target)`` from a ``LossConfig``."""
-    if loss_cfg.use_combined_loss:
-        w = loss_cfg.combined_loss_weights
+def get_loss_function(loss_cfg, mesh=None) -> Callable:
+    """``fn(pred, target)`` from a ``LossConfig``: the loss of a batch whose
+    rows ``mesh``'s ranks hold between them (each passes its rows; without
+    a mesh, the whole batch).  The batch sums go over the ranks before the
+    loss is formed from them."""
+    combined = loss_cfg.use_combined_loss
+    if not combined and loss_cfg.name not in ("FocalTverskyLoss", "DiceLoss"):
+        raise ValueError(f"Unknown loss function: {loss_cfg.name}")
 
-        def _combined(pred, target):
-            return combined_loss(
-                pred, target, ftl_weight=w["focal_tversky"], bce_weight=w["bce"],
-                alpha=loss_cfg.alpha, beta=loss_cfg.beta, gamma=loss_cfg.gamma,
-            )
+    def _fn(pred, target):
+        sums = global_sum(_batch_sums(pred, target, combined), mesh)
+        tp, fp, fn, p_sum, t_sum, *bce = sums.unbind()
+        ftl = _ftl(tp, fp, fn, loss_cfg.alpha, loss_cfg.beta, loss_cfg.gamma)
+        if combined:
+            w = loss_cfg.combined_loss_weights
+            n = pred.numel() * mesh_size(mesh)
+            return w["focal_tversky"] * ftl + w["bce"] * (bce[0] / n)
+        if loss_cfg.name == "FocalTverskyLoss":
+            return ftl
+        return 1.0 - (2.0 * tp + 1e-6) / (p_sum + t_sum + 1e-6)
 
-        return _combined
-    if loss_cfg.name == "FocalTverskyLoss":
-
-        def _ftl(pred, target):
-            return focal_tversky_loss(
-                pred, target, alpha=loss_cfg.alpha, beta=loss_cfg.beta, gamma=loss_cfg.gamma
-            )
-
-        return _ftl
-    if loss_cfg.name == "DiceLoss":
-        return dice_loss
-    raise ValueError(f"Unknown loss function: {loss_cfg.name}")
+    return _fn

@@ -97,19 +97,24 @@ class InstanceNorm(nn.Module):
 class ChannelDropout(nn.Module):
     """Channel dropout on ``[B, D, H, W, C]`` (``nn.Dropout3d`` semantics: a
     whole channel of a sample is dropped, survivors scaled by 1/(1-p)).  The
-    mask is drawn from ``generator`` (set by the trainer) on the input's device."""
+    mask is drawn from ``generator`` (set by the trainer) on the input's
+    device; with ``rows=(lo, hi, total)`` the input is rows ``lo:hi`` of a
+    global batch of ``total`` (a data-parallel rank) and the mask is drawn
+    for the global batch, as one process would draw it."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = float(p)
         self.generator = None
+        self.rows = None
 
     def forward(self, x):
         if not self.training:
             return x
         keep = 1.0 - self.p
-        mask = torch.rand((x.shape[0], 1, 1, 1, x.shape[-1]), generator=self.generator,
-                          device=x.device) < keep
+        lo, hi, total = self.rows if self.rows is not None else (0, x.shape[0], x.shape[0])
+        mask = torch.rand((total, 1, 1, 1, x.shape[-1]), generator=self.generator,
+                          device=x.device)[lo:hi] < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -276,11 +281,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def set_dropout_generator(model: nn.Module, generator) -> None:
-    """Draw every dropout mask of ``model`` from ``generator``."""
+def set_dropout_generator(model: nn.Module, generator, rows=None) -> None:
+    """Draw every dropout mask of ``model`` from ``generator``; ``rows`` as in
+    ``ChannelDropout``."""
     for m in model.modules():
         if isinstance(m, ChannelDropout):
             m.generator = generator
+            m.rows = rows
 
 
 def count_parameters(model: nn.Module) -> dict:

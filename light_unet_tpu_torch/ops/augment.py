@@ -11,6 +11,10 @@ a 2-tap linear interpolation along the untouched axis, then a 4-tap
 bilinear in the rotation plane).
 
 The draws come from an explicit ``torch.Generator`` on the batch's device.
+A rank of a data-parallel mesh holds some rows of the global batch
+(``rows``): it draws for the whole global batch and keeps its rows, so that
+every rank stays on the generator's one stream and N ranks augment as one
+process does.
 Choices that differ per sample (flip axis, rotation plane) are made
 branch-free: every branch is computed and ``torch.where`` selects, so a
 step never waits for the host.  Inactive transforms (angle 0, scale 1)
@@ -178,9 +182,11 @@ def affine_resample_separable(image: torch.Tensor, label: torch.Tensor, angle, p
 
 
 def make_augment_fn(aug_cfg, patch_size: Sequence[int], separable: bool = False) -> Callable:
-    """Build ``fn(generator, images[B,D,H,W,1], labels) -> (images, labels)``
-    from an ``AugmentationConfig``.  Ten uniforms per sample are drawn every
-    call (plus the noise field when noise is on), whatever is enabled."""
+    """Build ``fn(generator, images[B,D,H,W,1], labels, rows=None) -> (images,
+    labels)`` from an ``AugmentationConfig``.  Ten uniforms per sample are
+    drawn every call (plus the noise field when noise is on), whatever is
+    enabled; with ``rows=(lo, hi, total)`` the batch is rows ``lo:hi`` of a
+    global batch of ``total`` and the draws are the global batch's."""
     flip = aug_cfg.random_flip
     rot = aug_cfg.random_rotation
     scale_cfg = aug_cfg.random_scale
@@ -198,10 +204,12 @@ def make_augment_fn(aug_cfg, patch_size: Sequence[int], separable: bool = False)
     def pick(u, n):
         return torch.clamp((u * n).long(), max=n - 1)
 
-    def augment_batch(gen: torch.Generator, images: torch.Tensor, labels: torch.Tensor):
+    def augment_batch(gen: torch.Generator, images: torch.Tensor, labels: torch.Tensor,
+                      rows=None):
         image, label = images[..., 0], labels[..., 0]
         bsz = image.shape[0]
-        u = torch.rand((bsz, 10), generator=gen, device=image.device)
+        lo, hi, total = rows if rows is not None else (0, bsz, bsz)
+        u = torch.rand((total, 10), generator=gen, device=image.device)[lo:hi]
         bshape = (bsz, 1, 1, 1)
 
         if flip.get("enabled", False):
@@ -234,7 +242,8 @@ def make_augment_fn(aug_cfg, patch_size: Sequence[int], separable: bool = False)
 
         if noise_cfg.get("enabled", False):
             do = (u[:, 9] < noise_cfg.get("prob", 0.3)).reshape(bshape)
-            noise = sigma * torch.randn(image.shape, generator=gen, device=image.device)
+            noise = sigma * torch.randn((total, *image.shape[1:]), generator=gen,
+                                        device=image.device)[lo:hi]
             image = torch.where(do, torch.clamp(image + noise, 0.0, 1.0), image)
         return image[..., None], label[..., None]
 

@@ -1,5 +1,5 @@
-"""Batched sliding-window 3D inference on one device (port of
-``light_unet_tpu/ops/sliding_window.py:52-257, 421-731``).
+"""Batched sliding-window 3D inference (port of
+``light_unet_tpu/ops/sliding_window.py``).
 
 48^3 windows at overlap 0.5 with tail windows snapped to the volume edge,
 zero padding for volumes smaller than a patch, Gaussian importance blending
@@ -18,8 +18,25 @@ uint16 array travels as int16 holding the same bits.  With ``host_prefetch``
 (default on, as in the JAX package) ``dispatch`` starts the map's copy into
 pinned host memory behind a CUDA event, so ``fetch`` finds it there.
 
-One device only: a mesh of more than one device, or ``spatial_shard``,
-raises ``NotImplementedError`` (ROADMAP queue 1, item 10).
+On a mesh of several ranks (``parallel/mesh.py``, one process per GPU)
+there are two sharded paths, as in the JAX package:
+
+* patch-sharded (``sliding_window_core_sharded``): every rank holds the
+  whole volume and runs its contiguous share of the padded window list
+  with the same (chunk, tail) schedule; ``prob`` and ``count`` are summed
+  over the ranks (``psum``) before the divide, so every rank holds the map;
+* slab-sharded (``spatial_shard``, ``sliding_window_core_slab_sharded``):
+  z is padded to a multiple of the ranks, each rank uploads one z-slab
+  (at least a patch wide, else it warns and takes the patch-sharded path)
+  and runs the windows whose z origin it owns; the halo is the right
+  neighbour's head (a left send), and what a rank accumulated past its
+  slab is sent right and added onto the neighbour's head.  The output
+  stays sharded: ``fetch`` gathers it, and the mesh's first rank holds
+  the whole map.
+
+The packed mask and the sparse fetch keep the JAX package's rules per
+mode: neither in slab mode.  ``spatial_shard`` without a mesh of more than
+one rank is a no-op.
 """
 
 from __future__ import annotations
@@ -30,6 +47,8 @@ import numpy as np
 import torch
 
 from light_unet_tpu_torch.ops.gaussian import gaussian_importance_map
+from light_unet_tpu_torch.parallel.collectives import gather_to_root, ppermute, psum
+from light_unet_tpu_torch.parallel.mesh import Mesh, mesh_size
 from light_unet_tpu_torch.ops.sparse_fetch import (
     SparsePack,
     block_cap,
@@ -113,17 +132,21 @@ def _u16_to_f32(t: torch.Tensor) -> torch.Tensor:
     return (t.to(torch.int32) & 0xFFFF).float()
 
 
-def _valid_mask(shape, true_dims, device) -> torch.Tensor:
-    """1.0 inside the true extents of a zero-padded volume, built on the device."""
-    axes = [torch.arange(s, device=device) < int(t) for s, t in zip(shape, true_dims)]
+def _valid_mask(shape, true_dims, device, zoff: int = 0) -> torch.Tensor:
+    """1.0 inside the true extents of a zero-padded volume, built on the
+    device; ``zoff`` is the global z of the first column (a z-slab)."""
+    offs = (0, 0, zoff)
+    axes = [torch.arange(s, device=device) + o < int(t)
+            for s, t, o in zip(shape, true_dims, offs)]
     return (axes[0][:, None, None] & axes[1][None, :, None] & axes[2][None, None, :]).float()
 
 
-def _dequant_volume(volume: torch.Tensor, true_dims, vlo: float, vhi: float) -> torch.Tensor:
+def _dequant_volume(volume: torch.Tensor, true_dims, vlo: float, vhi: float,
+                    zoff: int = 0) -> torch.Tensor:
     """Invert ``quantize_u16`` in float32 and re-zero the bucket padding."""
     lo, hi = np.float32(vlo), np.float32(vhi)
     v = _u16_to_f32(volume) * ((hi - lo) / np.float32(65535.0)) + lo
-    return v * _valid_mask(volume.shape, true_dims, volume.device)
+    return v * _valid_mask(volume.shape, true_dims, volume.device, zoff)
 
 
 def _apply_post_mask(out: torch.Tensor, post_mask: torch.Tensor, mask_packed: bool) -> torch.Tensor:
@@ -196,6 +219,99 @@ def sliding_window_core(volume, positions, n_real, imp_map, apply_fn, patch_size
     return torch.where(count > 0, prob / torch.where(count > 0, count, 1.0), prob)
 
 
+def sliding_window_core_sharded(volume, positions: np.ndarray, n_real: int, imp_map, apply_fn,
+                                patch_size, chunk: int, mesh: Mesh, tail_chunk: int = 0):
+    """The patch axis sharded over ``mesh``: rank r takes rows
+    ``[r * per, (r + 1) * per)`` of the padded [n_pad, 3] window list
+    (``n_pad`` a multiple of the mesh size, the real windows first), runs
+    the shared (chunk, tail) schedule on them into its own accumulators,
+    and ``psum`` blends the partial maps before the divide: every rank
+    ends with the whole map."""
+    per = positions.shape[0] // mesh.size
+    lo = mesh.rank * per
+    n_mine = min(max(n_real - lo, 0), per)
+    prob, count = sliding_window_core_parts(volume, positions[lo:lo + per], n_mine, imp_map,
+                                            apply_fn, patch_size, chunk, tail_chunk)
+    psum(prob, mesh)
+    psum(count, mesh)
+    return torch.where(count > 0, prob / torch.where(count > 0, count, 1.0), prob)
+
+
+def partition_positions_slab(positions: np.ndarray, n_dev: int, slab: int,
+                             patch_batch: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Window origins bucketed by owning z-slab (owner = z // slab) into
+    ``[n_dev, cap, 3]`` positions and a ``[n_dev, cap]`` validity mask, ``cap``
+    the largest bucket rounded up to the chunk, so that every rank runs the
+    same forward schedule."""
+    owner = positions[:, 2] // slab
+    buckets = [positions[owner == d] for d in range(n_dev)]
+    cap = max(1, max(len(b) for b in buckets))
+    chunk = choose_chunk(cap, patch_batch)
+    cap = _round_up(cap, chunk)
+    pos = np.zeros((n_dev, cap, 3), dtype=np.int32)
+    msk = np.zeros((n_dev, cap), dtype=np.float32)
+    for d, b in enumerate(buckets):
+        pos[d, : len(b)] = b
+        msk[d, : len(b)] = 1.0
+    return pos, msk, chunk
+
+
+def sliding_window_core_slab_sharded(vol, true_dims, vlo: float, vhi: float, positions: np.ndarray,
+                                     mask: np.ndarray, imp_map, post_mask, apply_fn, patch_size,
+                                     chunk: int, mesh: Mesh, *, slab: int, dequant: bool,
+                                     use_post_mask: bool, quantize: bool):
+    """The volume sharded in z-slabs over ``mesh``: ``vol`` is this rank's
+    ``[D, H, slab]`` slab (``post_mask`` likewise, unpacked), ``positions`` /
+    ``mask`` the ``partition_positions_slab`` buckets of every rank.
+
+    One ``ppermute`` brings the right neighbour's first ``patch_z`` columns
+    (the halo), the windows this rank owns run locally into a slab + halo
+    accumulator, and a second pair of ``ppermute``s sends the part past the
+    slab to the right neighbour, which adds it onto its head.  The wrap-around
+    pairs are harmless: the last rank's windows end inside the volume, so
+    its spill is zero, and no valid window reads the halo it receives.
+    Returns this rank's slab of the map."""
+    n = mesh.size
+    halo = int(patch_size[2])
+    send_head_left = [(i, (i - 1) % n) for i in range(n)]
+    send_spill_right = [(i, (i + 1) % n) for i in range(n)]
+    zoff = mesh.rank * slab
+    if dequant:
+        vol = _dequant_volume(vol, true_dims, vlo, vhi, zoff)
+    recv = ppermute(vol[:, :, :halo], mesh, send_head_left)
+    vol_ext = torch.cat([vol, recv], dim=2)
+
+    n_mine = int(mask[mesh.rank].sum())
+    pos = positions[mesh.rank].copy()
+    pos[:n_mine, 2] -= zoff  # global -> slab-local z origins
+    pos[n_mine:] = 0  # padding windows: any in-bounds origin (their weight is 0)
+    prob, count = sliding_window_core_parts(vol_ext, pos, n_mine, imp_map, apply_fn,
+                                            patch_size, chunk)
+    spill_p = ppermute(prob[:, :, slab:], mesh, send_spill_right)
+    spill_c = ppermute(count[:, :, slab:], mesh, send_spill_right)
+    prob = prob[:, :, :slab].clone()
+    count = count[:, :, :slab].clone()
+    prob[:, :, :halo] += spill_p
+    count[:, :, :halo] += spill_c
+    out = torch.where(count > 0, prob / torch.where(count > 0, count, 1.0), prob)
+    if use_post_mask:
+        out = out * post_mask.float()
+    return quantize_out(out) if quantize else out
+
+
+class SlabShards(NamedTuple):
+    """A slab-mode dispatch result: this rank's z-slab of the padded map,
+    still on the device, and the mesh it is sharded over."""
+
+    out: torch.Tensor
+    mesh: Mesh
+
+    def gather(self) -> Optional[torch.Tensor]:
+        """The padded map on the mesh's first rank (None elsewhere); every
+        rank of the mesh must call it."""
+        return gather_to_root(self.out, self.mesh, dim=2)
+
+
 class HostPrefetch(NamedTuple):
     """A dispatch result whose device-to-host copy is under way: ``host`` is
     pinned memory receiving the dense map (or, for a ``SparsePack``, only its
@@ -238,7 +354,9 @@ def fetch_host(out) -> np.ndarray:
 
 
 class SlidingWindowInferencer:
-    """Reusable sliding-window engine for one model on one device."""
+    """Reusable sliding-window engine for one model, on one device or, with
+    ``mesh``, on every rank of a mesh (patch-sharded, or slab-sharded with
+    ``spatial_shard``)."""
 
     def __init__(
         self,
@@ -251,15 +369,11 @@ class SlidingWindowInferencer:
         fetch_dtype: str = "float32",
         sparse_fetch: bool = False,
         sparse_fetch_frac: float = 1.0,
-        mesh_shape: Optional[Sequence[int]] = None,
+        mesh: Optional[Mesh] = None,
         spatial_shard: bool = False,
         host_prefetch: bool = True,
         device="cuda",
     ):
-        if spatial_shard or (mesh_shape is not None and int(np.prod(mesh_shape)) > 1):
-            raise NotImplementedError(
-                "multi-device sliding window (tpu.mesh_shape with more than one device, "
-                "tpu.spatial_shard) is not ported yet: ROADMAP queue 1, item 10")
         self.device = resolve_device(device)
         self.apply_fn = apply_fn
         self.patch_size = tuple(int(p) for p in patch_size)
@@ -275,10 +389,15 @@ class SlidingWindowInferencer:
         # callers that consume the map on the device (bbox-only serving, the
         # device validation sweep) turn this off: no copy rides the link
         self.host_prefetch = bool(host_prefetch)
+        # a mesh of one rank is no mesh, and spatial_shard without one is a no-op
+        self.n_devices = mesh_size(mesh)
+        self.mesh = mesh if self.n_devices > 1 else None
+        self.spatial_shard = bool(spatial_shard) and self.mesh is not None
 
     def prepare(self, volume: np.ndarray, post_mask: Optional[np.ndarray] = None):
         """Host-side prep of one case (patch grid, quantize/pad, mask pack) and
-        the upload; run it on a worker thread to overlap the previous case."""
+        the upload (of this rank's slab only, in slab mode); run it on a
+        worker thread to overlap the previous case."""
         volume = np.asarray(volume, dtype=np.float32)
         if volume.ndim == 4 and volume.shape[0] == 1:
             volume = volume[0]
@@ -288,9 +407,36 @@ class SlidingWindowInferencer:
         positions = compute_positions(shape, self.patch_size, self.overlap)
         n = positions.shape[0]
         pshape = bucketed_shape(shape, self.patch_size, self.z_bucket)
-        chunk, tail, n_pad = choose_chunks(n, self.patch_batch)
-        pos_padded = np.zeros((n_pad, 3), dtype=np.int32)
-        pos_padded[:n] = positions
+
+        slab = 0
+        if self.spatial_shard:
+            # z padded to a multiple of the ranks, with a slab at least one
+            # patch wide so that one ppermute hop covers the halo
+            pz = _round_up(pshape[2], self.n_devices)
+            if pz // self.n_devices >= self.patch_size[2]:
+                pshape = (pshape[0], pshape[1], pz)
+                slab = pz // self.n_devices
+            else:
+                import warnings
+
+                warnings.warn(
+                    f"spatial_shard: padded z extent {pz} gives slab "
+                    f"{pz // self.n_devices} < patch {self.patch_size[2]} on "
+                    f"{self.n_devices} devices; falling back to the "
+                    f"patch-sharded path",
+                    stacklevel=2,
+                )
+        mask = None
+        if slab:
+            pos_padded, mask, chunk = partition_positions_slab(
+                positions, self.n_devices, slab, self.patch_batch)
+            tail = 0
+        else:
+            # every rank runs the same (chunk, tail) schedule on its share
+            per_dev = -(-max(n, 1) // self.n_devices)
+            chunk, tail, per_dev_pad = choose_chunks(per_dev, self.patch_batch)
+            pos_padded = np.zeros((per_dev_pad * self.n_devices, 3), dtype=np.int32)
+            pos_padded[:n] = positions
 
         region = (slice(0, shape[0]), slice(0, shape[1]), slice(0, shape[2]))
         vlo = vhi = 0.0
@@ -301,44 +447,73 @@ class SlidingWindowInferencer:
         else:
             vol_padded = np.zeros(pshape, dtype=np.float32)
             vol_padded[region] = volume
+        mine = slice(None)
+        if slab:
+            mine = slice(self.mesh.rank * slab, (self.mesh.rank + 1) * slab)
+            vol_padded = np.ascontiguousarray(vol_padded[:, :, mine])
 
         pm = None
         mask_packed = False
         if post_mask is not None:
             pm = np.zeros(pshape, dtype=np.uint8)
             pm[region] = np.asarray(post_mask) > 0
-            if pshape[2] % 8 == 0:  # bit-pack along the last axis when it is byte-aligned
+            # bit-pack along the last axis when it is byte-aligned; a slab
+            # stays unpacked (a slab boundary could split a byte)
+            if pshape[2] % 8 == 0 and not slab:
                 pm = np.packbits(pm, axis=2, bitorder="little")
                 mask_packed = True
-            pm = torch.from_numpy(pm).to(self.device, non_blocking=True)
+            pm = torch.from_numpy(np.ascontiguousarray(pm[:, :, mine])).to(
+                self.device, non_blocking=True)
         return {
             "volume": torch.from_numpy(vol_padded).to(self.device, non_blocking=True),
             "shape": shape, "vlo": vlo, "vhi": vhi, "positions": pos_padded, "n_real": n,
             "chunks": (chunk, tail), "post_mask": pm, "mask_packed": mask_packed,
+            "slab": slab, "slab_mask": mask,
         }
 
     @torch.no_grad()
     def dispatch(self, prep: dict):
         """Run the device computation for one ``prepare()``d case; returns
         (out, orig_shape) where ``out`` is the padded map (or a SparsePack)
-        still on the device."""
+        still on the device, or in slab mode a ``SlabShards``."""
         vol = prep["volume"]
+        chunk, tail = prep["chunks"]
+        if prep["slab"]:
+            out = sliding_window_core_slab_sharded(
+                vol, prep["shape"], prep["vlo"], prep["vhi"], prep["positions"],
+                prep["slab_mask"], self.imp_map, prep["post_mask"], self.apply_fn,
+                self.patch_size, chunk, self.mesh, slab=prep["slab"], dequant=self.quantize_in,
+                use_post_mask=prep["post_mask"] is not None, quantize=self.quantize_out)
+            return SlabShards(out, self.mesh), prep["shape"]
         if self.quantize_in:
             vol = _dequant_volume(vol, prep["shape"], prep["vlo"], prep["vhi"])
-        chunk, tail = prep["chunks"]
-        out = sliding_window_core(vol, prep["positions"], prep["n_real"], self.imp_map,
-                                  self.apply_fn, self.patch_size, chunk, tail)
+        if self.mesh is not None:
+            out = sliding_window_core_sharded(vol, prep["positions"], prep["n_real"], self.imp_map,
+                                              self.apply_fn, self.patch_size, chunk, self.mesh,
+                                              tail)
+        else:
+            out = sliding_window_core(vol, prep["positions"], prep["n_real"], self.imp_map,
+                                      self.apply_fn, self.patch_size, chunk, tail)
         if prep["post_mask"] is not None:
             out = _apply_post_mask(out, prep["post_mask"], prep["mask_packed"])
         cap = block_cap(vol.shape, self.sparse_block, self.sparse_frac) if self.sparse_fetch else 0
         out = _finalize_output(out, self.quantize_out, cap, self.sparse_block)
-        if self.host_prefetch and self.device.type == "cuda":
+        # on a mesh every rank holds the map; the first one fetches it
+        fetches = self.mesh is None or self.mesh.is_root
+        if self.host_prefetch and fetches and self.device.type == "cuda":
             out = start_host_copy(out)
         return out, prep["shape"]
 
     @staticmethod
-    def fetch(dispatched) -> np.ndarray:
+    def fetch(dispatched) -> Optional[np.ndarray]:
+        """The map on the host, cropped to the volume; in slab mode every
+        rank must call it, and the mesh's first rank gets the map (None
+        elsewhere)."""
         out, shape = dispatched
+        if isinstance(out, SlabShards):
+            out = out.gather()
+            if out is None:
+                return None
         host = fetch_host(out)[: shape[0], : shape[1], : shape[2]]
         if host.dtype == np.uint16:  # quantized fetch -> dequantize on the host
             host = host.astype(np.float32)

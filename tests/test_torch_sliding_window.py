@@ -1,6 +1,7 @@
 """PyTorch port: sliding-window pieces, the core, and block-sparse fetch,
 held against the JAX package on the CPU."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -129,7 +130,42 @@ def test_sparse_fetch_overflow_falls_back_dense(rng):
 
 
 def test_multi_device_raises():
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        sw.SlidingWindowInferencer(lambda x: x, PATCH, mesh_shape=[2], device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        sw.SlidingWindowInferencer(lambda x: x, PATCH, spatial_shard=True, device="cpu")
+    """One process: a ``mesh_shape`` of two devices raises JAX's ``ValueError``
+    (``parallel/mesh.py``); ``spatial_shard`` alone builds a one-device engine."""
+    from light_unet_tpu.parallel.mesh import create_mesh as jax_create_mesh
+    from light_unet_tpu_torch.config import TpuConfig
+    from light_unet_tpu_torch.parallel.mesh import mesh_from_config
+
+    with pytest.raises(ValueError) as want:
+        jax_create_mesh(devices=jax.devices()[:1], mesh_shape=[2])
+    with pytest.raises(ValueError) as got:
+        mesh_from_config(TpuConfig(mesh_shape=[2]), device="cpu")
+    assert str(got.value) == str(want.value) == "mesh_shape [2] needs 2 devices, have 1"
+    engine = sw.SlidingWindowInferencer(lambda x: x, PATCH, spatial_shard=True, device="cpu")
+    assert engine.mesh is None and not engine.spatial_shard
+
+
+@pytest.mark.parametrize("transfer", ["float32", "uint16"])
+def test_spatial_shard_on_one_device_is_a_no_op(rng, transfer):
+    """``spatial_shard`` without a mesh of several devices serves the same map
+    as without it, and JAX's map with the same flag (JAX treats it as a
+    no-op on one device, ``light_unet_tpu/ops/sliding_window.py:508``)."""
+    mc = ModelConfig()
+    jmodel = jax_build_model(mc, jnp.float32, inference=True, precision="highest")
+    params = random_params(jmodel, (1, *PATCH, 1), seed=12, train=False)
+    model = build_model(mc, torch.float32, inference=True).eval()
+    model.load_state_dict(from_jax_params(params), strict=True)
+    vol = rng.random((20, 24, 40)).astype(np.float32)
+    body = (rng.random(vol.shape) > 0.3).astype(np.float32)
+    maps = []
+    for shard in (False, True):
+        engine = sw.SlidingWindowInferencer(model, PATCH, patch_batch=8, z_bucket=16,
+                                            transfer_dtype=transfer, spatial_shard=shard,
+                                            device="cpu")
+        maps.append(engine.fetch(engine.dispatch(engine.prepare(vol, body))))
+    np.testing.assert_array_equal(maps[0], maps[1])
+    jengine = jsw.SlidingWindowInferencer(jit_apply(jmodel), PATCH, patch_batch=8, z_bucket=16,
+                                          transfer_dtype=transfer, spatial_shard=True)
+    assert jengine.mesh is None and not jengine.spatial_shard
+    want = jengine(params, vol, post_mask=body)
+    assert np.abs(maps[1] - want).max() <= 1e-5

@@ -227,8 +227,11 @@ def test_cli_all_on_the_cpu(tmp_path):
 
 
 def test_cli_bench_and_multi_device_training_name_the_roadmap(tree):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    """``--mode bench`` names its ROADMAP item; a ``mesh_shape`` of two
+    devices in one process raises JAX's ``ValueError`` (a two-rank trainer is
+    ``tests/test_torch_parallel_trainer.py``)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 16"):
         cli.run(["--mode", "bench"])
     multi = Config.from_dict({**_cfg(tree), "tpu": {"mesh_shape": [2]}})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
+    with pytest.raises(ValueError, match=r"mesh_shape \[2\] needs 2 devices, have 1"):
         Trainer(multi, workdir=str(tree / "multi"), device="cpu")
