@@ -62,7 +62,10 @@ Phases:
    model (bf16, batch 2, 48^3, device corpus, ``steps_per_dispatch`` 4,
    separable augmentation, augmentation and dropout on, ``tpu.use_pallas``
    on) for 2 epochs on 2 of the processed phantoms, validating on the other
-   2; checks: finite losses, parameters changed, checkpoints and
+   2, every dispatch unit a CUDA graph replay and every validation chunk
+   forward too (the graph keys must be the JAX package's variants: the
+   chain of 4 and the epoch's tail; warm-up and capture seconds, replays
+   and pool logged); checks: finite losses, parameters changed, checkpoints and
    ``best_model.pth`` written, no norm- or block-kernel launch inside the
    training steps and norm-kernel launches in validation, ``resume`` in a
    fresh trainer restores the epoch and the optimizer step, and one float32
@@ -83,7 +86,8 @@ Phases:
    is ``configs/unet_mixed_fl_dlbcl.yaml`` (``fl_epoch_plus_dlbcl``, DLBCL
    steps = FL batches x 1.0; phase 8's model, rate and gates) for 1 epoch
    on FL 0001-0002 + DLBCL 1001-1002 through ``Trainer.train``, validating
-   on FL 0003-0004: step counts per domain, finite losses, no kernel launch
+   on FL 0003-0004, graphed (both domains' units share the keys): step
+   counts per domain, finite losses, no kernel launch
    in the training steps and norm-kernel launches in validation,
    checkpoint and best model written, and a fresh trainer resumes with
    both sampler streams, the generator and the optimizer step equal; run B
@@ -94,9 +98,12 @@ Phases:
    peak device memory;
 11. multi-rank (``parallel/``): (a) a one-rank NCCL group on cuda:0 made
    by ``maybe_distributed_init``, ``all_reduce`` and
-   ``reduce_scatter_tensor`` of uint8 on the card; (b) on one card 2
+   ``reduce_scatter_tensor`` of uint8 on the card, then ``GuardedAdamW.step``
+   (its gradient all-reduce) and a reduce-scatter captured in one CUDA
+   graph and replayed, equal to the eager calls; (b) on one card 2
    spawned ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
-   card), on several cards one rank a card over NCCL, with the full-width
+   card; gloo ranks train with the eager step, which the log says), on
+   several cards one rank a card over NCCL, with the full-width
    model: one processed phantom served by ``Inferencer``
    patch-sharded and slab-sharded (z padded to 288, slabs of 144) in bf16
    under ``fused_block`` (within 5e-2 of phase 6's map) and in float32 with
@@ -110,10 +117,31 @@ Phases:
    within 1e-4 relative of one process at the same global batch; logged: s
    a volume on each rank beside one rank's, ms a step, peak memory a rank
    (ranks sharing one card: no speed-up claim);
-12. one JSON line of per-kernel numbers (launches summed over the runs under
+12. the dispatch units as CUDA graphs against the eager path (``Trainer(...,
+   graphs=False)``): (a) phase 8's configuration in float32 (TF32 off), 15
+   steps as chains of 4, a tail chain of 2 and the single step with one
+   planted non-finite batch, with cuDNN's deterministic algorithms: losses
+   within 1e-5 relative, parameters and moments within 1e-5, skip flags,
+   step count and generator state equal (with its default algorithms,
+   graphed against eager and eager against eager are logged);
+   (b) the same in bf16, each path timed (median ms a step over 24 steps
+   after capture, back to back, first unit with its capture), profiled
+   (device busy share, host launch calls a unit) and its peak memory
+   logged; (c) a 192- and an 8-patch bf16 chunk forward per route, graphed
+   and eager: the maps' difference, device ms and host µs a call, and each
+   replay adding the eager forward's kernel launches to the counters; (d)
+   the fused pipeline under ``fused_block``, graphed and eager, two passes
+   each over the 4 raw volumes (vol/s; the first graphed pass pays the
+   captures), the maps compared;
+13. one JSON line of per-kernel numbers (launches summed over the runs under
    the kernel's gate: serving, fused pipeline, the training phases'
    validation, the evaluate phase's serving and the multi-rank phase, each
-   logged), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+   logged; a graph replay counts every launch it holds), the ``nvidia-smi``
+   line, and last ``{"ok": true, "device": {...}}``.
+
+On one card the training dispatch units (phases 8, 10, 11's one-process
+references) and every single-device chunk forward (phases 6, 7, 8, 9, 10)
+run as CUDA graph replays, the port's default.
 
 Any failure raises and exits non-zero.  Float32 comparisons run with TF32 off.
 """
@@ -316,6 +344,22 @@ def host_us(fn, calls: int = 200) -> float:
     seconds = time.perf_counter() - t0
     torch.cuda.synchronize()
     return seconds / calls * 1e6
+
+
+def enqueue_us(fn, reps: int = 5) -> float:
+    """Host µs to enqueue one call of ``fn`` on an idle device (the least of
+    ``reps`` calls, each after a synchronize): the host cost of a call,
+    which a full launch queue cannot stretch to the device's time."""
+    import torch
+
+    best = np.inf
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best * 1e6
 
 
 def norm_phase(batch: int, gen, timed: bool):
@@ -731,24 +775,33 @@ def check_against_plain(runs: dict, what: str) -> None:
             raise AssertionError(f"{name} {what} maps differ from the plain model by {err}")
 
 
-def fused_run(config, state: dict, paths: list, profile: bool = False):
-    """``FusedVolumePipeline`` over raw volumes, decode and prepare on a
-    worker thread; returns (vol/s, peak bytes, {case: map}, {case: prepared})."""
-    from concurrent.futures import ThreadPoolExecutor
-
+def fused_pipeline(config, state: dict, graphs: bool = True):
+    """``FusedVolumePipeline`` over a bf16 model with ``state``, under
+    ``config``'s gates."""
     import torch
 
     from light_unet_tpu_torch.models.fused_forward import make_fused_apply
     from light_unet_tpu_torch.models.unet3d import build_model
     from light_unet_tpu_torch.ops.fused import FusedVolumePipeline
-    from light_unet_tpu_torch.utils import fastio
 
     model = build_model(config.model, torch.bfloat16, inference=True,
                         use_pallas=config.tpu.use_pallas)
     model.load_state_dict(state, strict=True)
     model = model.cuda().eval()
     apply_fn = make_fused_apply(model) if config.tpu.fused_block else model
-    pipe = FusedVolumePipeline(apply_fn, config, patch_batch=config.tpu.patch_batch, device="cuda")
+    return FusedVolumePipeline(apply_fn, config, patch_batch=config.tpu.patch_batch,
+                               graphs=graphs, device="cuda")
+
+
+def fused_pass(pipe, paths: list) -> tuple:
+    """One pass of ``pipe`` over raw volumes, decode and prepare on a worker
+    thread; returns (seconds, [map], {case: prepared})."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from light_unet_tpu_torch.utils import fastio
+
     preps = {}
 
     def load_and_prepare(path):
@@ -757,22 +810,32 @@ def fused_run(config, state: dict, paths: list, profile: bool = False):
         return prep
 
     torch.cuda.synchronize()
+    maps = []
+    t0 = time.perf_counter()
+    pending = None
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for prep in pool.map(load_and_prepare, paths):
+            dispatched = pipe.dispatch(prep)
+            if pending is not None:
+                maps.append(pipe.fetch(pending))
+            pending = dispatched
+        maps.append(pipe.fetch(pending))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, maps, preps
+
+
+def fused_run(config, state: dict, paths: list, profile: bool = False):
+    """``FusedVolumePipeline`` over raw volumes, decode and prepare on a
+    worker thread; returns (vol/s, peak bytes, {case: map}, {case: prepared})."""
+    import torch
+
+    pipe = fused_pipeline(config, state)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA])
-    maps = []
     with prof if profile else contextlib.nullcontext():
-        t0 = time.perf_counter()
-        pending = None
-        with ThreadPoolExecutor(max_workers=2) as pool:
-            for prep in pool.map(load_and_prepare, paths):
-                dispatched = pipe.dispatch(prep)
-                if pending is not None:
-                    maps.append(pipe.fetch(pending))
-                pending = dispatched
-            maps.append(pipe.fetch(pending))
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        seconds, maps, preps = fused_pass(pipe, paths)
     if profile:
         report_profile(prof, seconds)
     out = {p.name.split("_")[0]: m for p, m in zip(paths, maps)}
@@ -780,6 +843,30 @@ def fused_run(config, state: dict, paths: list, profile: bool = False):
         if m.shape != SERVING_SHAPE or not np.isfinite(m).all() or not m.max() > 0:
             raise AssertionError(f"bad fused map {cid}: {m.shape}, max {m.max()}")
     return len(paths) / seconds, torch.cuda.max_memory_allocated(), out, preps, pipe
+
+
+def fused_graphs_ab(state: dict, paths: list, smi: str) -> dict:
+    """12d: ``FusedVolumePipeline`` under ``fused_block``, graphed and eager,
+    two passes each over the raw volumes in turns (graphed, eager, eager,
+    graphed passes): the first graphed pass pays the captures; the maps of
+    the two paths compared."""
+    from light_unet_tpu_torch.config import Config
+
+    cfg = Config.from_dict(SERVING)
+    pipes = {g: fused_pipeline(cfg, state, graphs=g) for g in (True, False)}
+    rates, maps = {True: [], False: []}, {}
+    for g in (True, False, False, True):
+        seconds, maps[g], _ = fused_pass(pipes[g], paths)
+        rates[g].append(len(paths) / seconds)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(maps[True], maps[False]))
+    same = all(np.array_equal(a, b) for a, b in zip(maps[True], maps[False]))
+    log(f"  [12d] fused pipeline, fused_block, {len(paths)} raw volumes: graphed "
+        f"{rates[True][0]:.3f} vol/s (first pass, two captures) then {rates[True][1]:.3f}; eager "
+        f"{rates[False][0]:.3f} then {rates[False][1]:.3f}; maps max abs diff {err:.3e} "
+        f"(bit-identical: {same}) on {smi}")
+    if not err <= 5e-2:
+        raise AssertionError(f"graphed and eager fused maps differ by {err}")
+    return rates
 
 
 def fused_phases(pipe, path: Path) -> None:
@@ -1080,6 +1167,38 @@ def count_launches(trainer) -> tuple:
     return launches, epoch_s, val_s
 
 
+def log_graphs(runner, what: str) -> None:
+    """A ``GraphRunner``'s keys, warm-up and capture seconds, replays and pool."""
+    keys = {k[:2] if k[0] == "chunk" else k[:-1]: (round(runner.warmup_seconds[k], 3),
+                                                    round(runner.capture_seconds[k], 3))
+            for k in runner.graphs}
+    log(f"  {what} graphs: {len(keys)} keys (key: warm-up s, capture s) {keys}; "
+        f"{runner.replays} replays; pool {runner.pool_bytes / 2**30:.2f} GiB")
+
+
+def unit_keys(steps: int, k: int) -> set:
+    """The graph keys of ``steps`` corpus steps grouped K at a time: the
+    chain, and the tail (a shorter chain, or the single step)."""
+    want = {("chain", k) if k > 1 else ("step",)} if steps >= k else set()
+    tail = steps % k
+    if tail:
+        want.add(("chain", tail) if tail > 1 else ("step",))
+    return want
+
+
+def check_graphs(trainer, steps: int) -> None:
+    """The trainer ran graphed: its keys are the JAX package's variants for an
+    epoch of ``steps`` corpus steps at its K, and validation replayed its
+    chunk forwards."""
+    want = unit_keys(steps, trainer._chain)
+    got = {key[:-1] for key in trainer.graphs.graphs}
+    log_graphs(trainer.graphs, "training")
+    log_graphs(trainer.sw.forward_graphs, "validation window")
+    if got != want or not trainer.graphs.replays or not trainer.sw.forward_graphs.replays:
+        raise AssertionError(f"training graph keys {got}, want {want}; replays "
+                             f"{trainer.graphs.replays}, window {trainer.sw.forward_graphs.replays}")
+
+
 def train_phase(tmp: Path, data_dir: Path, ids: list, smi: str, profile: bool = False) -> tuple:
     """The port ``Trainer`` on the card; returns (best model path, val split,
     norm-kernel launches in validation)."""
@@ -1119,6 +1238,7 @@ def train_phase(tmp: Path, data_dir: Path, ids: list, smi: str, profile: bool = 
     log(f"  peak device memory {peak / 2**30:.2f} GiB; skipped steps "
         f"{result['skipped_steps_total']}; launches in training steps {launches['train']}, "
         f"in validation {launches['val']} on {smi}")
+    check_graphs(trainer, steps)
     if not np.isfinite(hist["train_loss"]).all() or len(hist["train_loss"]) != 2:
         raise AssertionError(f"training losses not finite: {hist['train_loss']}")
     if launches["train"] != dict(norm=0, block=0, plain_block=0):
@@ -1319,6 +1439,10 @@ def mixed_phase(tmp: Path, data_dir: Path, fl_ids: list, smi: str) -> int:
     if launches["train"] != dict(norm=0, block=0, plain_block=0) or launches["val"]["norm"] == 0:
         raise AssertionError(f"kernel launches: training {launches['train']}, "
                              f"validation {launches['val']}")
+    log_graphs(trainer.graphs, "run A training (both domains)")
+    want = unit_keys(n_fl, trainer._chain) | unit_keys(n_dl, trainer._chain)
+    if not trainer.graphs.replays or {k[:-1] for k in trainer.graphs.graphs} != want:
+        raise AssertionError(f"run A graph keys {list(trainer.graphs.graphs)}, want {want}")
     ckpts = sorted(p.name for p in (work / "models/checkpoints").glob("*.ckpt"))
     if ckpts != ["checkpoint_epoch_001.ckpt"] or not (work / cfg.output.best_model_path).exists():
         raise AssertionError(f"checkpoints {ckpts}, best model missing?")
@@ -1371,6 +1495,258 @@ def mixed_phase(tmp: Path, data_dir: Path, fl_ids: list, smi: str) -> int:
     return launches["val"]["norm"]
 
 
+def graph_trainer(data_dir: Path, splits: Path, workdir: Path, graphs: bool, **tpu):
+    """Phase 8's configuration (``train_config``, ``tpu`` overrides), graphed
+    or with the eager step (``graphs=False``), in train mode at its first
+    rate."""
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.core.trainer import Trainer
+
+    tr = Trainer(Config.from_dict(train_config(data_dir, splits, tpu=tpu)),
+                 workdir=str(workdir), device="cuda", graphs=graphs)
+    if (tr.graphs is not None) != graphs:
+        raise AssertionError(f"graphs={graphs} built runner {tr.graphs}")
+    tr.model.train()
+    tr._set_lr(tr.scheduler.current_lr())
+    return tr
+
+
+def plant_nonfinite(tr) -> int:
+    """One corpus row more (before any capture), with labels of 2, and a loss
+    that is NaN for a batch holding such labels: a non-finite step that
+    ``GuardedAdamW`` skips.  Returns the row."""
+    import torch
+
+    c = tr.corpus
+    c.images = torch.cat([c.images, c.images[:1]])
+    c.labels = torch.cat([c.labels, torch.full_like(c.labels[:1], 2)])
+    base = tr.loss_fn
+
+    def loss_fn(probs, labels):
+        # a constant NaN added: the gradients stay finite, the loss does not
+        nan = torch.where((labels > 1).any(), float("nan"), 0.0)
+        return base(probs, labels) + nan
+
+    tr.loss_fn = loss_fn
+    return c.images.shape[0] - 1
+
+
+def agreement_run(data_dir: Path, splits: Path, workdir: Path, graphs: bool) -> dict:
+    """Phase 8's configuration in float32 (TF32 off), 15 steps as 5 units:
+    chains of 4 (the second with the planted non-finite batch at its second
+    step), a tail chain of 2, the single step, a chain of 4; returns the
+    losses, skip flags, optimizer state, generator state and graph keys."""
+    import torch
+
+    tr = graph_trainer(data_dir, splits, workdir, graphs, compute_dtype="float32",
+                       use_pallas=False)
+    row = plant_nonfinite(tr)
+    draw = tr.train_loader.sample_corners
+    units = [np.stack([draw() for _ in range(k)]) for k in (4, 4, 2)] + [draw()]
+    units.append(np.stack([draw() for _ in range(4)]))
+    units[1][1, 0, 0] = row
+    t0 = time.perf_counter()
+    losses = tr._flatten_losses([tr._step_on_batch(u) for u in units])
+    out = dict(losses=losses, seconds=time.perf_counter() - t0, gen=tr.gen.get_state(),
+               oks=torch.cat([o.reshape(-1) for o in tr._epoch_oks]).cpu().tolist(),
+               keys=sorted(k[:-1] for k in tr.graphs.graphs) if graphs else None,
+               **{k: getattr(tr.opt, k).cpu().clone() for k in ("flat", "mu", "nu", "count")})
+    tr.writer.close()
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_runs(a: dict, b: dict) -> dict:
+    """Largest relative loss difference over b's finite steps, bit equality
+    of the losses, and the largest parameter and moment differences."""
+    fin = [i for i, ok in enumerate(b["oks"]) if ok == 1.0]
+    rel = max([abs(a["losses"][i] - b["losses"][i]) / abs(b["losses"][i]) for i in fin]
+              or [np.inf])
+    bits = [a["losses"][i] for i in fin] == [b["losses"][i] for i in fin]
+    return dict(rel=rel, bits=bits, **{k: float((a[k] - b[k]).abs().max())
+                                       for k in ("flat", "mu", "nu")})
+
+
+def graph_agreement(data_dir: Path, splits: Path, tmp: Path) -> dict:
+    """12a: ``agreement_run`` graphed and eager from the same seed with
+    cuDNN's deterministic algorithms: losses within 1e-5 relative,
+    parameters and both moments within 1e-5 abs, skip flags, step counts
+    and the generator's state equal.  Then with cuDNN's default algorithms
+    (whose backward sums in a varying order): graphed against eager and
+    eager against eager, logged."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        g, e = (agreement_run(data_dir, splits, tmp / f"agree_{x}", x) for x in (True, False))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    d = compare_runs(g, e)
+    log(f"  [12a] float32, 15 steps, deterministic cuDNN, graphed keys {g['keys']} vs eager: "
+        f"losses rel diff {d['rel']:.3e} (bar 1e-5; bit-identical: {d['bits']}), flat / mu / nu "
+        f"max abs diff {d['flat']:.3e} / {d['mu']:.3e} / {d['nu']:.3e} (bar 1e-5); skip flags "
+        f"{[i for i, ok in enumerate(g['oks']) if ok == 0.0]} vs "
+        f"{[i for i, ok in enumerate(e['oks']) if ok == 0.0]}; step count {int(g['count'])} vs "
+        f"{int(e['count'])}; generator state equal {torch.equal(g['gen'], e['gen'])}; "
+        f"{g['seconds']:.2f} s vs {e['seconds']:.2f} s (captures included)")
+    if not (d["rel"] <= 1e-5 and max(d["flat"], d["mu"], d["nu"]) <= 1e-5
+            and g["oks"] == e["oks"] and e["oks"].count(0.0) == 1 and e["oks"][5] == 0.0
+            and int(g["count"]) == int(e["count"]) == 14 and torch.equal(g["gen"], e["gen"])
+            and g["keys"] == [("chain", 2), ("chain", 4), ("step",)]):
+        raise AssertionError(f"graphed and eager training differ: {d}, {g['oks']} vs "
+                             f"{e['oks']}, keys {g['keys']}")
+    g2, e2, e3 = (agreement_run(data_dir, splits, tmp / f"agree_default_{i}", x)
+                  for i, x in enumerate((True, False, False)))
+    for name, (a, b) in (("graphed vs eager", (g2, e2)), ("eager vs eager", (e3, e2))):
+        d2 = compare_runs(a, b)
+        log(f"  [12a] default cuDNN, {name}: losses rel diff {d2['rel']:.3e} (bit-identical: "
+            f"{d2['bits']}), flat / mu / nu max abs diff {d2['flat']:.3e} / {d2['mu']:.3e} / "
+            f"{d2['nu']:.3e}; skip flags equal {a['oks'] == b['oks']}")
+    return d
+
+
+def host_calls(prof) -> int:
+    """CUDA runtime and driver calls that launch work or copy (kernel and
+    graph launches, memcpy, memset) in a profile."""
+    import torch
+
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("cu")
+               and any(w in e.key for w in ("Launch", "Memcpy", "Memset")))
+
+
+def graph_timing(data_dir: Path, splits: Path, tmp: Path, smi: str) -> dict:
+    """12b: phase 8's configuration (bf16, K = 4), graphed and eager: one
+    unit to capture (graphed) or warm up, then 6 units each synchronized
+    (the median over their 24 steps), 6 back to back, 3 under
+    torch.profiler (device busy share, host launch calls a unit); peak
+    memory over the run."""
+    import torch
+
+    rows = {}
+    for graphs in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = graph_trainer(data_dir, splits, tmp / f"timing_{graphs}", graphs)
+        draw = tr.train_loader.sample_corners
+        units = [np.stack([draw() for _ in range(4)]) for _ in range(16)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr._step_on_batch(units[0])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        spans = []
+        for u in units[1:7]:
+            t0 = time.perf_counter()
+            tr._step_on_batch(u)
+            torch.cuda.synchronize()
+            spans.append((time.perf_counter() - t0) / 4 * 1e3)
+        t0 = time.perf_counter()
+        for u in units[7:13]:
+            tr._step_on_batch(u)
+        torch.cuda.synchronize()
+        b2b = (time.perf_counter() - t0) / 24 * 1e3
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            t0 = time.perf_counter()
+            for u in units[13:]:
+                tr._step_on_batch(u)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        tr._epoch_oks.clear()
+        rows[graphs] = dict(
+            median_ms=float(np.median(spans)), b2b_ms=b2b, first_s=first_s,
+            busy=busy_ms / (wall * 1e3), busy_ms_step=busy_ms / 12, device_kinds=len(kernels),
+            calls_unit=host_calls(prof) / 3, peak=torch.cuda.max_memory_allocated(),
+            capture_s=sum(tr.graphs.capture_seconds.values()) if graphs else None,
+            pool=tr.graphs.pool_bytes if graphs else None, profiled_ms=wall / 12 * 1e3)
+        tr.writer.close()
+        del tr
+    for graphs, name in ((True, "graphed"), (False, "eager")):
+        r = rows[graphs]
+        extra = (f"; capture {r['capture_s']:.2f} s, pool {r['pool'] / 2**30:.2f} GiB"
+                 if graphs else "")
+        log(f"  [12b] {name}: {r['median_ms']:.2f} ms a step (median of 24 steps, each unit "
+            f"synchronized), {r['b2b_ms']:.2f} ms back to back, first unit {r['first_s']:.2f} s"
+            f"{extra}; profiled: {r['profiled_ms']:.2f} ms a step, device busy "
+            f"{100 * r['busy']:.1f} % ({r['busy_ms_step']:.2f} ms of kernels a step, "
+            f"{r['device_kinds']} kernel names), {r['calls_unit']:.0f} host launch calls a "
+            f"unit of 4 steps; peak memory {r['peak'] / 2**30:.2f} GiB on {smi}")
+    if not rows[True]["calls_unit"] < rows[False]["calls_unit"] / 10:
+        raise AssertionError(f"graphed units still make {rows[True]['calls_unit']} host calls")
+    return rows
+
+
+def forward_graphs_phase(state: dict, gen, smi: str) -> list:
+    """12c: one chunk forward of 192 and of 8 patches (48^3, bf16, full
+    width, the serving weights) per route, graphed (``GraphRunner`` +
+    ``chunk_forward``, as the window runs it) and eager: the maps'
+    difference, device ms a call (CUDA events), host µs to enqueue a call
+    (``enqueue_us``); each replay adds the eager forward's kernel launches
+    to the counters."""
+    from functools import partial
+
+    import torch
+
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.models.fused_forward import make_fused_apply
+    from light_unet_tpu_torch.models.unet3d import build_model
+    from light_unet_tpu_torch.ops import block_kernel, norm_kernel
+    from light_unet_tpu_torch.ops.sliding_window import chunk_forward, chunk_key
+    from light_unet_tpu_torch.utils.graphs import GraphRunner
+
+    rows = []
+    for route, gates in GATES:
+        model = build_model(Config.from_dict(SERVING).model, torch.bfloat16, inference=True,
+                            use_pallas=gates["use_pallas"])
+        model.load_state_dict(state, strict=True)
+        model = model.cuda().eval()
+        apply_fn = make_fused_apply(model) if gates["fused_block"] else model
+        fwd = partial(chunk_forward, apply_fn)
+        for n in (192, 8):
+            c = torch.rand((n, 48, 48, 48), generator=gen, device="cuda")
+            runner = GraphRunner("window", "cuda")
+            key = chunk_key(apply_fn, c)
+            with torch.no_grad():
+                eager = fwd(c)
+                runner(key, fwd, c)
+                counts = (block_kernel.launches, norm_kernel.launches)
+                graphed = runner(key, fwd, c)[0].clone()
+                per_replay = (block_kernel.launches - counts[0], norm_kernel.launches - counts[1])
+                counts = (block_kernel.launches, norm_kernel.launches)
+                fwd(c)
+                per_eager = (block_kernel.launches - counts[0], norm_kernel.launches - counts[1])
+                err = float((graphed - eager).abs().max())
+                bits = bool(torch.equal(graphed, eager))
+                iters = 10 if n == 192 else 50
+                ms_e = cuda_ms(lambda: fwd(c), iters=iters)
+                ms_g = cuda_ms(lambda: runner(key, fwd, c), iters=iters)
+                us_e = enqueue_us(lambda: fwd(c))
+                us_g = enqueue_us(lambda: runner(key, fwd, c))
+            rows.append(dict(route=route, n=n, err=err, bits=bits, ms_e=ms_e, ms_g=ms_g,
+                             us_e=us_e, us_g=us_g, capture_s=sum(runner.capture_seconds.values()),
+                             per_replay=per_replay))
+            log(f"  [12c] {route}, {n} patches bf16: graphed vs eager max abs diff {err:.3e} "
+                f"(bit-identical: {bits}); device {ms_g:.3f} vs {ms_e:.3f} ms a call; host "
+                f"{us_g:.0f} vs {us_e:.0f} µs to enqueue a call; capture {rows[-1]['capture_s']:.2f} s, "
+                f"pool {runner.pool_bytes / 2**30:.2f} GiB; launches a replay (block, norm) "
+                f"{per_replay}, eager {per_eager} on {smi}")
+            if per_replay != per_eager or err > 2e-2 * max(float(eager.abs().max()), 1.0):
+                raise AssertionError(f"{route} {n}: replay launches {per_replay} vs {per_eager}, "
+                                     f"err {err}")
+            del runner, eager, graphed, c
+            torch.cuda.empty_cache()
+        del model, apply_fn, fwd
+    return rows
+
+
 def free_port() -> int:
     import socket
 
@@ -1404,8 +1780,46 @@ def nccl_phase() -> None:
             raise AssertionError(f"one-rank NCCL collectives: backend {mesh.backend}")
         log(f"  [11a] one-rank NCCL {'.'.join(map(str, torch.cuda.nccl.version()))} group on "
             f"cuda:0: all_reduce and reduce_scatter_tensor of uint8 ran on the card")
+        nccl_graph_check(mesh)
     finally:
         distributed.finish()
+
+
+def nccl_graph_check(mesh) -> None:
+    """11a, graphed: ``GuardedAdamW.step`` with its gradient all-reduce and a
+    reduce-scatter, captured on the one-rank NCCL mesh and replayed, equal
+    bit for bit to the same calls made eagerly."""
+    import torch
+
+    from light_unet_tpu_torch.core.trainer import GuardedAdamW
+    from light_unet_tpu_torch.parallel.collectives import psum_scatter
+    from light_unet_tpu_torch.utils.graphs import GraphRunner
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    init = [torch.randn(s, generator=gen, device="cuda") for s in ((64, 3), (5,))]
+    opts = [GuardedAdamW([torch.nn.Parameter(t.clone()) for t in init], 1e-3, 1e-4, mesh=mesh)
+            for _ in range(2)]
+
+    def unit(opt, g0, g1, loss):
+        ok = opt.step([g0, g1], loss)
+        return ok, psum_scatter(g0 * 2, mesh)
+
+    runner = GraphRunner("nccl", "cuda:0")
+    outs = []
+    for i in range(4):
+        args = [torch.randn(s, generator=gen, device="cuda") for s in ((64, 3), (5,))]
+        args.append(torch.tensor(float("nan") if i == 2 else 0.5, device="cuda"))
+        got = [t.clone() for t in runner(("step",), lambda *a: unit(opts[0], *a), *args)]
+        want = unit(opts[1], *args)
+        outs.append(all(torch.equal(a, b) for a, b in zip(got, want)))
+    torch.cuda.synchronize()
+    same = outs + [torch.equal(getattr(opts[0], k), getattr(opts[1], k))
+                   for k in ("flat", "mu", "nu", "count")]
+    log(f"  [11a] graphed on NCCL: GuardedAdamW.step (gradient all_reduce) and "
+        f"reduce_scatter_tensor captured once, replayed {runner.replays} times (one planted "
+        f"non-finite step): outputs and optimizer state equal to the eager calls: {all(same)}")
+    if not all(same) or runner.replays != 3 or int(opts[0].count) != 3:
+        raise AssertionError(f"NCCL graph replays differ from the eager calls: {same}")
 
 
 # phase 11b's serving runs: (name, tpu overrides of SERVING)
@@ -1500,7 +1914,7 @@ def multirank_rank(rank: int, n: int, init: str, work: str, plan: dict) -> None:
             step_launches=step_launches, val_norm=norm_kernel.launches,
             val_s=time.perf_counter() - t1, val_loss=val_loss, recall=metrics["best_recall"],
             peak=torch.cuda.max_memory_allocated(), rows=int(tr.corpus.images.shape[0]),
-            global_batch=tr.global_batch)
+            global_batch=tr.global_batch, replays=tr.graphs.replays if tr.graphs else 0)
         torch.save(tr.opt.flat.cpu(), work / f"flat_{rank}.pt")
         del tr
 
@@ -1571,7 +1985,11 @@ def multirank_phase(tmp: Path, data_dir: Path, case_id: str, model_path: Path, b
         n, f"tcp://localhost:{free_port()}", str(work), plan))
     spawn_s = time.perf_counter() - t0
     got = [json.loads((work / f"rank{r}.json").read_text()) for r in range(n)]
-    log(f"  [11b] {n} ranks over {backend}")
+    log(f"  [11b] {n} ranks over {backend}" + (
+        "; the ranks train with the eager step and run the sharded windows eagerly (gloo "
+        "stages its collectives through host memory, which a CUDA graph cannot capture)"
+        if backend == "gloo" else "; training graphed with its NCCL collectives, sharded "
+        "windows eager"))
 
     bars = {"bf16": (bf16_map, 5e-2), "f32": (ref32, 1e-5)}
     for name, _ in MULTIRANK_SERVING:
@@ -1608,6 +2026,10 @@ def multirank_phase(tmp: Path, data_dir: Path, case_id: str, model_path: Path, b
         f"{[round(x, 8) for x in got[0]['f32_losses'][:3]]} vs {[round(x, 8) for x in want32[:3]]}, "
         f"relative diff {max(rel):.2e} (bar 1e-4); flat parameters of the ranks bit-identical: "
         f"{same}; phase 11b spawn {spawn_s:.1f} s")
+    log(f"  [11b] training graph replays a rank: {[t['replays'] for t in trains]} (NCCL: the "
+        f"steps and their collectives replayed; gloo: the eager step)")
+    if any((t["replays"] > 0) != (backend == "nccl") for t in trains):
+        raise AssertionError(f"{backend} ranks replayed {[t['replays'] for t in trains]} units")
     if (any(t["losses"] != trains[0]["losses"] for t in trains)
             or not np.isfinite(trains[0]["losses"]).all()
             or any(t["step_launches"] != dict(norm=0, block=0) or t["val_norm"] == 0
@@ -1801,7 +2223,17 @@ def main(argv=None) -> int:
                                            1.0 / serving_vps, smi)
         log(f"  multi-rank phase {time.perf_counter() - t0:.1f} s on {smi}")
 
-    # 12. results
+        # 12. the dispatch units as CUDA graphs against the eager path
+        log("[graphs] phase 8's configuration graphed and eager (the explicit argument); "
+            "chunk forwards graphed and eager per route")
+        t0 = time.perf_counter()
+        graph_agreement(data_dir, tmp / "train_splits", tmp)
+        graph_timing(data_dir, tmp / "train_splits", tmp, smi)
+        forward_graphs_phase(state, gen, smi)
+        fused_graphs_ab(state, raw_paths, smi)
+        log(f"  graphs phase {time.perf_counter() - t0:.1f} s on {smi}")
+
+    # 13. results
     def total(rows, key, weights=None):
         return sum(r[key] * (weights or {}).get(k, 1) for k, r in rows.items())
 

@@ -14,7 +14,8 @@ residual block through the fused block kernel; ``tpu.use_pallas`` sends
 every InstanceNorm through the fused norm kernel.  In float32 every launch
 runs without TF32 (``utils/device.py:precision_scope``), as the JAX package
 runs its float32 model at ``precision="highest"``; ``tpu.profile_dir``
-traces ``infer_split``.
+traces ``infer_split``.  On one card each chunk's forward is one CUDA graph
+replay (``ops/sliding_window.py``); ``graphs=False`` runs it eagerly.
 
 In a multi-process run (``parallel/mesh.py:mesh_from_config``) every case
 fans out over the world's ranks: patch-sharded, or slab-sharded with
@@ -100,7 +101,9 @@ class Inferencer:
     """Generate probability maps + candidate bboxes for cases of a split."""
 
     def __init__(self, config_or_path, model_path, workdir: Optional[str] = None,
-                 save_prob_maps: bool = True, device="cuda"):
+                 save_prob_maps: bool = True, device="cuda", graphs: bool = True):
+        """``graphs=False`` runs every chunk forward eagerly on a card (the
+        reference path); the CPU has no graphs."""
         self.save_prob_maps = save_prob_maps
         self.device = resolve_device(device)
         if isinstance(config_or_path, Config):
@@ -142,6 +145,7 @@ class Inferencer:
             spatial_shard=bool(cfg.tpu.spatial_shard),
             # the copy back starts at dispatch only when the map is saved
             host_prefetch=self.save_prob_maps,
+            graphs=graphs,
             device=self.device,
         )
 

@@ -41,9 +41,25 @@ Data: a device-resident corpus (``datasets/device_corpus.py``) when the
 inputs are uint16-quantizable, else the host ``PrefetchLoader``.  The mixed
 modes keep one corpus, the FL cases then the DLBCL cases, and their corner
 loaders map each sampler's case index to its row.  With the corpus,
-``tpu.steps_per_dispatch`` = K groups K corner batches into one upload and
-K steps enqueued back to back; losses and finite-update flags stay on the
-device until the epoch's bulk sync, as in the JAX package.
+``tpu.steps_per_dispatch`` = K groups K corner batches into one dispatch
+unit of K gather -> augment -> train steps; losses and finite-update flags
+stay on the device until the epoch's bulk sync, as in the JAX package.
+
+Dispatch units and where they run.  A unit is what the JAX package
+compiles into one program (``_build_train_chain``, ``_build_train_step``):
+a [K, B, 4] corner chain, an epoch's shorter tail chain, a single corpus
+step, or a host (images, labels) batch (``_unit_key``).  On a card each
+unit is one CUDA graph replay (``utils/graphs.py``), captured at the key's
+first unit; its inputs go into static buffers that the graph reads, and it
+reads the parameters, both moments, the step count, the learning rate and
+weight decay, and the corpus where they lie, so those keep their storage
+for the life of the trainer (every update is in place, ``resume``
+included).  The augmentation and dropout generator is registered with
+every graph.  An NCCL mesh is captured with its collectives; a gloo mesh
+(host-staged collectives) runs the eager step, as does ``graphs=False``,
+which is the reference path; both are logged.  On the CPU there are no
+graphs: the eager step is the path.  Validation's sliding window runs each
+chunk's forward as a graph replay on one device (``ops/sliding_window.py``).
 
 Data parallelism (``parallel/mesh.py``, one process per GPU, as many ranks
 as ``mesh_from_config`` keeps): every rank runs the same sampler streams
@@ -111,6 +127,7 @@ from light_unet_tpu_torch.parallel.mesh import (
     shard_chain,
 )
 from light_unet_tpu_torch.utils.device import precision_scope, resolve_device
+from light_unet_tpu_torch.utils.graphs import runner_for
 
 EPS = 1e-8
 
@@ -252,7 +269,10 @@ def is_better_metric(recall, dsc, best_recall, best_dsc, tie_threshold) -> Tuple
 class Trainer:
     """Train the 3D U-Net per a validated ``Config`` on ``device``."""
 
-    def __init__(self, config_or_path, workdir: Optional[str] = None, device="cuda"):
+    def __init__(self, config_or_path, workdir: Optional[str] = None, device="cuda",
+                 graphs: bool = True):
+        """``graphs=False`` runs the eager step on a card (the reference
+        path); the CPU has no graphs."""
         if isinstance(config_or_path, Config):
             self.config = config_or_path
         elif isinstance(config_or_path, dict):
@@ -313,6 +333,8 @@ class Trainer:
 
         self.ledger = HbmLedger(device=self.device)
         self.ledger.charge("params+opt_state", self.opt.nbytes())
+        # one CUDA graph per dispatch-unit key (None: the eager step)
+        self.graphs = runner_for(self.device, graphs, "train", self.mesh, self.ledger, [self.gen])
 
         # --- data ----------------------------------------------------------
         data_dir = self._resolve(cfg.data_dir)
@@ -397,6 +419,8 @@ class Trainer:
             # host-fallback case pays one unprefetched fetch instead
             host_prefetch=not bool(getattr(cfg.tpu, "device_val_metrics", True)),
             mesh=self.mesh,
+            graphs=graphs,
+            ledger=self.ledger,
             device=self.device,
         )
 
@@ -476,13 +500,12 @@ class Trainer:
                         for p in (case.image_path, case.label_path, case.body_mask_path)
                         if p is not None)
 
-    def _upload(self, array: np.ndarray) -> torch.Tensor:
+    def _host_tensor(self, array: np.ndarray) -> torch.Tensor:
+        """``array`` as a host tensor to upload (pinned on a card)."""
         if array.dtype == np.uint16:  # uint16 travels as int16 bits
             array = array.view(np.int16)
         t = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return t.pin_memory() if self.device.type == "cuda" else t
 
     @staticmethod
     def _dequantize(images: torch.Tensor, labels: torch.Tensor):
@@ -505,38 +528,67 @@ class Trainer:
     def _set_lr(self, lr: float) -> None:
         self.opt.set_lr(lr)
 
+    def _corpus_unit(self, corners: torch.Tensor) -> torch.Tensor:
+        """K gather -> augment -> train steps on a [K, B, 4] device corner
+        chain (a case-sharded corpus routes the whole batch; else this rank's
+        rows); returns [2, K]: the losses, then the finite flags."""
+        patch = tuple(self.config.data.patch_size)
+        out = []
+        for k in range(corners.shape[0]):
+            if self.corpus.sharded:
+                images, labels = gather_patches_sharded(
+                    self.corpus.images, self.corpus.labels, corners[k], patch, self.mesh)
+            else:
+                images, labels = gather_patches(self.corpus.images, self.corpus.labels,
+                                                corners[k], patch)
+            out.append(torch.stack(self._step(images, labels)))
+        return torch.stack(out, 1)
+
+    def _host_unit(self, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """One step on a device (images, labels) batch; returns [2, 1]."""
+        return torch.stack(self._step(images, labels))[:, None]
+
+    @staticmethod
+    def _unit_key(unit) -> tuple:
+        """The JAX package's compiled variant a dispatch unit takes: a
+        [K, B, 4] chain is ``("chain", K)`` (an epoch's tail chain is one more
+        variant), a [B, 4] corner batch the single step ``("step",)`` (a tail
+        of one reuses it), a host (images, labels) batch ``("host",)``."""
+        if not isinstance(unit, np.ndarray):
+            return ("host",)
+        return ("chain", unit.shape[0]) if unit.ndim == 3 else ("step",)
+
+    def _run_unit(self, key: tuple, fn, *inputs: torch.Tensor) -> torch.Tensor:
+        """``fn`` on host ``inputs``: one graph replay on a card (its output
+        copied out before the next replay overwrites it), else uploaded and
+        run eagerly."""
+        if self.graphs is not None:
+            out = self.graphs(key + (self.model.training,), fn, *inputs)[0]
+            return out.clone()
+        return fn(*(x.to(self.device, non_blocking=True) for x in inputs))
+
     def _step_on_batch(self, batch):
         """Steps on one dispatch unit: a [K,B,4] corner chain, a [B,4] corner
         array, or an (images, labels) host pair, each of the global batch.
         Returns the loss(es) as un-synchronized device tensors; the finite
         flags queue on ``self._epoch_oks``."""
+        key = self._unit_key(batch)
         with precision_scope(self.compute_dtype):
-            if not isinstance(batch, np.ndarray):
+            if key == ("host",):
                 images, labels = shard_batch(batch, self.mesh)
-                loss, ok = self._step(self._upload(images), self._upload(labels))
-                self._epoch_oks.append(ok)
-                return loss
-            patch = tuple(self.config.data.patch_size)
-            chain = batch if batch.ndim == 3 else batch[None]
-            # a case-sharded corpus routes the whole batch; else this rank's rows
-            routed = self.corpus.sharded
-            chain = self._upload(chain if routed else shard_chain(chain, self.mesh))
-            losses, oks = [], []
-            for k in range(chain.shape[0]):
-                if routed:
-                    images, labels = gather_patches_sharded(
-                        self.corpus.images, self.corpus.labels, chain[k], patch, self.mesh)
-                else:
-                    images, labels = gather_patches(self.corpus.images, self.corpus.labels,
-                                                    chain[k], patch)
-                loss, ok = self._step(images, labels)
-                losses.append(loss)
-                oks.append(ok)
-            if batch.ndim == 2:
-                self._epoch_oks.append(oks[0])
-                return losses[0]
-            self._epoch_oks.append(torch.stack(oks))
-            return torch.stack(losses)
+                out = self._run_unit(key, self._host_unit, self._host_tensor(images),
+                                     self._host_tensor(labels))
+            else:
+                chain = batch if batch.ndim == 3 else batch[None]
+                # a case-sharded corpus routes the whole batch; else this rank's rows
+                if not self.corpus.sharded:
+                    chain = shard_chain(chain, self.mesh)
+                out = self._run_unit(key, self._corpus_unit, self._host_tensor(chain))
+        if key[0] == "chain":
+            self._epoch_oks.append(out[1])
+            return out[0]
+        self._epoch_oks.append(out[1, 0])
+        return out[0, 0]
 
     def _dispatch_units(self, loader):
         """Group corner batches into [K,B,4] chains (``tpu.steps_per_dispatch``
@@ -954,6 +1006,8 @@ class Trainer:
         self.val_fallback_history = ckpt.get("val_fallback_history", [])
         rng = ckpt.get("rng_state")
         if rng is not None:
+            # in place: the captured graphs read this generator's seed and
+            # offset at every replay (set_state keeps the state they registered)
             self.gen.set_state(rng["generator"])
             for stream, state in zip(self.streams, rng["samplers"], strict=True):
                 stream.bit_generator.state = state

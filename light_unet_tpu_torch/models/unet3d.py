@@ -234,6 +234,12 @@ class Lightweight3DUNet(nn.Module):
         self.up3 = UpBlock(ch[1], ch[0], **kw)
         self.out_conv = Conv3d(ch[0], out_channels, 1, bias=True)  # float32, as flax promotes
 
+    @property
+    def route(self) -> str:
+        """The inference route a sliding window's graph key records:
+        ``use_pallas`` when the norms take the norm kernel, else ``plain``."""
+        return "use_pallas" if self.init_conv.norm1.use_pallas else "plain"
+
     def forward(self, x):
         x = x.to(self.compute_dtype)
         x1 = self.init_conv(x)

@@ -17,7 +17,8 @@ of ``csrc/residual_block.cu`` (or raises); on a CPU tensor it runs
 ``reference_residual_block``, the plain version beside it.  ``launches``
 counts kernel launches and ``plain_calls`` counts plain-version calls.
 The weights go to the kernel's layouts once per block, dtype and device
-(``kernel_weights``); in bf16 the pointwise weights of 16/32/64/128-channel
+(``kernel_weights``; inside a CUDA graph capture the conversion is part of
+the graph instead); in bf16 the pointwise weights of 16/32/64/128-channel
 convs are packed as tensor-core (mma) fragments.
 """
 
@@ -103,12 +104,18 @@ def kernel_weights(blk, dtype, device):
     device.  The cache key holds each parameter's storage pointer and
     version counter, so ``load_state_dict``, an optimizer step or any
     in-place update (which bump the version) and a replaced parameter all
-    convert anew; a write through ``.data`` bumps no version and is missed."""
+    convert anew; a write through ``.data`` bumps no version and is missed.
+
+    Inside a CUDA graph capture the cache is neither read nor written: the
+    conversion is recorded in the graph, so every replay converts the
+    weights as they are at replay time (an optimizer step between two
+    replays of a validation forward is seen)."""
     device = torch.device(device)
+    capturing = device.type == "cuda" and torch.cuda.is_current_stream_capturing()
     params = tuple(blk.parameters())
     key = (dtype, device, tuple((p.data_ptr(), p._version) for p in params))
     hit = getattr(blk, "_kernel_weights", None)
-    if hit is not None and hit[0] == key:
+    if hit is not None and hit[0] == key and not capturing:
         return hit[1]
     cin = blk.conv1.depthwise.weight.shape[0]
     c = blk.conv1.pointwise.weight.shape[0]
@@ -131,7 +138,8 @@ def kernel_weights(blk, dtype, device):
         conv, norm = blk.shortcut
         kw.update(sc=pointwise(conv.weight, mma1), nss=_f32(norm.weight, device),
                   nsb=_f32(norm.bias, device))
-    blk._kernel_weights = (key, kw)
+    if not capturing:
+        blk._kernel_weights = (key, kw)
     return kw
 
 

@@ -47,6 +47,7 @@ from light_unet_tpu_torch.ops.sliding_window import (
 from light_unet_tpu_torch.ops.sparse_fetch import block_cap
 from light_unet_tpu_torch.utils import fastio
 from light_unet_tpu_torch.utils.device import resolve_device
+from light_unet_tpu_torch.utils.graphs import runner_for
 
 
 def normalize_volume(volume: torch.Tensor, true_dims: Sequence[int], lo: float, hi: float, *,
@@ -101,14 +102,15 @@ def preprocess_and_infer(volume: torch.Tensor, true_dims, lo: float, hi: float,
                          range_min: float, range_max: float, threshold: float,
                          closing_voxels: int, keep_largest: bool, dilate_voxels: int,
                          apply_mask: bool, dequant: bool = False, quantize_out: bool = False,
-                         sparse_cap: int = 0, sparse_block: int = 8):
+                         sparse_cap: int = 0, sparse_block: int = 8, forward_graphs=None):
     """One volume: dequantize, normalize, sliding window, body mask, output
     quantization and block-sparse packing.  Returns the padded map (float32,
-    or uint16 levels as int16 bits) or a ``SparsePack``, on the device."""
+    or uint16 levels as int16 bits) or a ``SparsePack``, on the device.
+    With ``forward_graphs`` each chunk's forward is one CUDA graph replay."""
     normalized, valid = normalize_volume(volume, true_dims, lo, hi, range_min=range_min,
                                          range_max=range_max, dequant=dequant)
     prob = sliding_window_core(normalized, positions, n_real, imp_map, apply_fn, patch_size,
-                               chunk, tail_chunk)
+                               chunk, tail_chunk, forward_graphs)
     if apply_mask:
         body, _ = body_mask_core(normalized, valid, threshold, closing_voxels, keep_largest,
                                  dilate_voxels)
@@ -122,11 +124,15 @@ class FusedVolumePipeline:
     ``prepare`` (percentiles, quantize, pad, upload) is host work meant for a
     worker thread, so the decode and preparation of case i+1 overlap the
     device's work on case i; ``dispatch`` enqueues the program and returns
-    at once; ``fetch`` waits for the map and returns it on the host."""
+    at once; ``fetch`` waits for the map and returns it on the host.  On a
+    card each chunk's forward is one CUDA graph replay; ``graphs=False`` runs
+    it eagerly (the reference path)."""
 
     def __init__(self, apply_fn: Callable, config, patch_batch: int = 96, transfer_dtype=None,
-                 fetch_dtype=None, host_prefetch: bool = True, device="cuda"):
+                 fetch_dtype=None, host_prefetch: bool = True, graphs: bool = True,
+                 device="cuda"):
         self.device = resolve_device(device)
+        self.forward_graphs = runner_for(self.device, graphs, "window")
         self.host_prefetch = bool(host_prefetch)
         self.apply_fn = apply_fn
         self.cfg = config
@@ -188,7 +194,7 @@ class FusedVolumePipeline:
             closing_voxels=closing, keep_largest=keep_largest, dilate_voxels=dilate,
             apply_mask=bool(bm.enabled and bm.apply_to_inference),
             dequant=self.transfer_dtype == "uint16", quantize_out=self.quantize_out,
-            sparse_cap=cap, sparse_block=self.sparse_block)
+            sparse_cap=cap, sparse_block=self.sparse_block, forward_graphs=self.forward_graphs)
         if self.host_prefetch and self.device.type == "cuda":
             out = start_host_copy(out)  # fetch() waits on its event
         return out, shape

@@ -49,9 +49,13 @@ def as_f32(p, device):
     """``p`` as a contiguous float32 tensor on ``device``: ``p`` itself when it
     already is one, else a copy cached on ``p`` (``p._kernel_f32``) and keyed
     by device, storage pointer and version counter, so an in-place update or
-    ``load_state_dict`` converts anew (a write through ``.data`` is missed)."""
+    ``load_state_dict`` converts anew (a write through ``.data`` is missed).
+    Inside a CUDA graph capture the copy is made in the graph and not
+    cached, so every replay reads ``p`` as it is then."""
     if p.dtype == torch.float32 and p.device == device and p.is_contiguous():
         return p
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        return p.detach().to(device, torch.float32).contiguous()
     key = (device, p.data_ptr(), p._version)
     hit = getattr(p, "_kernel_f32", None)
     if hit is None or hit[0] != key:

@@ -37,10 +37,20 @@ there are two sharded paths, as in the JAX package:
 The packed mask and the sparse fetch keep the JAX package's rules per
 mode: neither in slab mode.  ``spatial_shard`` without a mesh of more than
 one rank is a no-op.
+
+On one device of a card each chunk's forward is one CUDA graph replay
+(``forward_graphs``, a ``utils/graphs.py:GraphRunner``), keyed by chunk
+shape, compute dtype and route (``fused_block``, ``use_pallas``, plain):
+``choose_chunks`` makes powers of two from 8 to ``patch_batch``, so a
+handful of keys.  The gather, the ordered scatter-add and the rest stay
+eager: the positions follow each volume's true shape.  The sharded windows
+run eagerly.  ``graphs=False`` runs every forward eagerly (the reference
+path); the CPU has no graphs.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,6 +67,7 @@ from light_unet_tpu_torch.ops.sparse_fetch import (
     to_numpy,
 )
 from light_unet_tpu_torch.utils.device import resolve_device
+from light_unet_tpu_torch.utils.graphs import runner_for
 
 
 def compute_positions(shape: Sequence[int], patch_size: Sequence[int],
@@ -174,14 +185,31 @@ def _finalize_output(out, quantize: bool, sparse_cap: int, sparse_block: int):
     return out
 
 
+def chunk_forward(apply_fn, chunk: torch.Tensor) -> torch.Tensor:
+    """The network on a [n, pd, ph, pw] chunk of patches: float32
+    probabilities of the same shape (the unit a graph captures)."""
+    return apply_fn(chunk[..., None])[..., 0].float()
+
+
+def chunk_key(apply_fn, chunk: torch.Tensor) -> tuple:
+    """A chunk forward's graph key: the chunk's shape and dtype, the route
+    and compute dtype of ``apply_fn`` (a ``models.unet3d.Lightweight3DUNet`` or
+    ``make_fused_apply``'s function), the float32 convolutions' TF32 flag
+    and the function itself."""
+    return ("chunk", tuple(chunk.shape), chunk.dtype, getattr(apply_fn, "route", None),
+            getattr(apply_fn, "compute_dtype", None), torch.backends.cudnn.allow_tf32,
+            id(apply_fn))
+
+
 def sliding_window_core_parts(volume, positions: np.ndarray, n_real: int, imp_map, apply_fn,
-                              patch_size, chunk: int, tail_chunk: int = 0):
+                              patch_size, chunk: int, tail_chunk: int = 0, forward_graphs=None):
     """Raw (prob, count) accumulators: gather -> chunked forward -> scatter-add.
 
     ``positions`` is the padded [n_pad, 3] host array; its first ``n_real``
     rows are real windows.  Padding windows run through the forward (so the
     chunk schedule is the JAX package's) but carry zero weight, so they are
-    not added."""
+    not added.  With ``forward_graphs`` (a ``GraphRunner``) each chunk's
+    forward is one graph replay."""
     n = positions.shape[0]
     pd, ph, pw = patch_size
     dev = volume.device
@@ -193,14 +221,18 @@ def sliding_window_core_parts(volume, positions: np.ndarray, n_real: int, imp_ma
         (pos[:, 2, None] + ar[2])[:, None, None, :],
     ]
 
-    def fwd(c):
-        return apply_fn(c[..., None])[..., 0].float()
-
+    fwd = functools.partial(chunk_forward, apply_fn)
     n_main = n - tail_chunk
-    preds = [fwd(patches[i:i + chunk]) for i in range(0, n_main, chunk)]
+    starts = [(i, chunk) for i in range(0, n_main, chunk)]
     if tail_chunk:
-        preds.append(fwd(patches[n_main:]))
-    preds = torch.cat(preds)
+        starts.append((n_main, tail_chunk))
+    preds = torch.empty(patches.shape, dtype=torch.float32, device=dev)
+    for i, size in starts:
+        c = patches[i:i + size]
+        if forward_graphs is None:
+            preds[i:i + size] = fwd(c)
+        else:  # copied out before the next replay overwrites the output
+            preds[i:i + size] = forward_graphs(chunk_key(apply_fn, c), fwd, c)[0]
     weighted = preds * imp_map[None]
 
     prob = torch.zeros(volume.shape, dtype=torch.float32, device=dev)
@@ -212,10 +244,11 @@ def sliding_window_core_parts(volume, positions: np.ndarray, n_real: int, imp_ma
 
 
 def sliding_window_core(volume, positions, n_real, imp_map, apply_fn, patch_size, chunk,
-                        tail_chunk: int = 0):
+                        tail_chunk: int = 0, forward_graphs=None):
     """Blended probability map of a zero-padded [Dp, Hp, Wp] volume."""
     prob, count = sliding_window_core_parts(
-        volume, positions, n_real, imp_map, apply_fn, patch_size, chunk, tail_chunk)
+        volume, positions, n_real, imp_map, apply_fn, patch_size, chunk, tail_chunk,
+        forward_graphs)
     return torch.where(count > 0, prob / torch.where(count > 0, count, 1.0), prob)
 
 
@@ -372,6 +405,8 @@ class SlidingWindowInferencer:
         mesh: Optional[Mesh] = None,
         spatial_shard: bool = False,
         host_prefetch: bool = True,
+        graphs: bool = True,
+        ledger=None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -393,6 +428,10 @@ class SlidingWindowInferencer:
         self.n_devices = mesh_size(mesh)
         self.mesh = mesh if self.n_devices > 1 else None
         self.spatial_shard = bool(spatial_shard) and self.mesh is not None
+        # one device: each chunk's forward is a CUDA graph replay (the
+        # sharded windows run eagerly); ``graphs=False`` is the eager reference
+        self.forward_graphs = None if self.mesh is not None else runner_for(
+            self.device, graphs, "window", ledger=ledger)
 
     def prepare(self, volume: np.ndarray, post_mask: Optional[np.ndarray] = None):
         """Host-side prep of one case (patch grid, quantize/pad, mask pack) and
@@ -493,7 +532,8 @@ class SlidingWindowInferencer:
                                               tail)
         else:
             out = sliding_window_core(vol, prep["positions"], prep["n_real"], self.imp_map,
-                                      self.apply_fn, self.patch_size, chunk, tail)
+                                      self.apply_fn, self.patch_size, chunk, tail,
+                                      self.forward_graphs)
         if prep["post_mask"] is not None:
             out = _apply_post_mask(out, prep["post_mask"], prep["mask_packed"])
         cap = block_cap(vol.shape, self.sparse_block, self.sparse_frac) if self.sparse_fetch else 0

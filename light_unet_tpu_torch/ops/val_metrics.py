@@ -48,8 +48,8 @@ _INT32_MAX = 2**31 - 1
 def dequantize_prob(prob: torch.Tensor) -> torch.Tensor:
     """A uint16-quantized map (int16 bits) -> float32 probabilities, as the
     JAX package computes them (float32 level times float32 1/65535)."""
-    if prob.dtype == torch.int16:
-        return _u16_to_f32(prob) * torch.tensor(np.float32(1.0 / 65535.0), device=prob.device)
+    if prob.dtype == torch.int16:  # the float32 scalar rounds to itself: no upload
+        return _u16_to_f32(prob) * float(np.float32(1.0 / 65535.0))
     return prob.float()
 
 

@@ -150,7 +150,9 @@ def barrier() -> None:
 
 def finish() -> None:
     """End this process's part of the run: wait at the run-end barrier (when
-    a mesh left ranks out), then destroy the process group.  Idempotent."""
+    a mesh left ranks out), destroy the CUDA graphs (those that captured
+    NCCL collectives must go before the communicator), then destroy the
+    process group.  Idempotent."""
     global _run_end_group
     if not is_distributed_initialized():
         return
@@ -158,4 +160,7 @@ def finish() -> None:
         group, _run_end_group = _run_end_group, None
         dist.barrier(group=group)
     _parked.clear()
+    from light_unet_tpu_torch.utils import graphs
+
+    graphs.release()
     dist.destroy_process_group()

@@ -1,0 +1,186 @@
+"""CUDA graphs: one device program per dispatch unit (the port's counterpart
+of the JAX package's ``jax.jit`` programs).
+
+The JAX package compiles every dispatch unit into one device program: the
+training step and its K-step chain (``light_unet_tpu/core/trainer.py:538-585``)
+and the sliding window's forward (``ops/sliding_window.py:172-203``).  The
+port captures the same units with ``torch.cuda.CUDAGraph`` and replays them,
+so that a unit costs the host one replay instead of hundreds of launches.
+
+``GraphRunner`` keeps one graph per key (the counterpart of JAX's compiled
+variants):
+
+* the first call of a key runs the unit eagerly on the runner's side
+  stream.  That run is the warm-up (cuDNN picks its algorithms, an NCCL
+  communicator comes up, the norm kernel's workspace is made) and a real
+  dispatch: its outputs are returned.  Then the unit is captured on the
+  same stream into the runner's memory pool, which all its graphs share;
+* every later call copies its inputs into the graph's static input buffers
+  and replays.  It returns the graph's static outputs, which the next
+  replay of the runner overwrites: a caller that keeps them copies them.
+
+The generators given are registered with every graph, so a replay advances
+each one's Philox offset as the eager calls would, and ``set_state`` on such
+a generator moves the stream the graphs read.  The kernels' launch counters
+(``ops/block_kernel.launches``, ``ops/norm_kernel.launches``) count a
+captured launch once per replay and not at the capture, which runs nothing.
+Graph memory (the pool's growth at each capture) is charged to an
+``HbmLedger`` when one is given.  A capture or replay error raises; nothing
+falls back to the eager unit.
+
+A graph bakes every address it reads: the static buffers, and whatever the
+unit reads besides (parameters, optimizer state, a corpus).  Those must keep
+their storage for the life of the runner; updates go in place.
+"""
+
+from __future__ import annotations
+
+import importlib
+import time
+import weakref
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+# modules whose ``launches`` counter a replay advances by what its capture recorded
+LAUNCH_COUNTERS = ("light_unet_tpu_torch.ops.block_kernel", "light_unet_tpu_torch.ops.norm_kernel")
+# every live runner, so that ``release`` can destroy their graphs
+_runners: "weakref.WeakSet[GraphRunner]" = weakref.WeakSet()
+
+
+def _counters() -> Tuple[int, ...]:
+    return tuple(importlib.import_module(m).launches for m in LAUNCH_COUNTERS)
+
+
+def _add_launches(counts: Sequence[int]) -> None:
+    for name, n in zip(LAUNCH_COUNTERS, counts):
+        if n:
+            importlib.import_module(name).launches += n
+
+
+class Captured(NamedTuple):
+    """One key's graph: its static inputs and outputs and the kernel launches
+    one replay makes (per ``LAUNCH_COUNTERS``)."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: Tuple[torch.Tensor, ...]
+    outputs: Tuple[torch.Tensor, ...]
+    launches: Tuple[int, ...]
+
+
+class GraphRunner:
+    """Capture a unit once per key, replay it after (see the module doc).
+
+    ``name`` names the ledger entry; ``generators`` are the CUDA generators
+    the units draw from."""
+
+    def __init__(self, name: str, device, ledger=None,
+                 generators: Sequence[torch.Generator] = ()):
+        self.name = name
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, got {self.device}")
+        self.ledger = ledger
+        self.generators = list(generators)
+        self.graphs: Dict[tuple, Captured] = {}
+        self.pool = None
+        self.stream = None
+        self.replays = 0
+        self.warmup_seconds: Dict[tuple, float] = {}
+        self.capture_seconds: Dict[tuple, float] = {}
+        self.pool_bytes = 0
+        _runners.add(self)
+
+    def __call__(self, key: tuple, fn: Callable, *inputs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """``fn(*inputs)`` (a tensor or a tuple of tensors) as a tuple: the
+        warm-up's own outputs at a key's first call, else the graph's static
+        outputs after one replay.  ``inputs`` may lie on the host (pinned
+        memory copies without blocking) or on the device."""
+        entry = self.graphs.get(key)
+        if entry is None:
+            return self._capture(key, fn, inputs)
+        if len(inputs) != len(entry.inputs):
+            raise ValueError(f"graph {key}: {len(inputs)} inputs, captured with {len(entry.inputs)}")
+        for static, x in zip(entry.inputs, inputs):
+            if static.shape != x.shape or static.dtype != x.dtype:
+                raise ValueError(f"graph {key}: input {x.dtype} {tuple(x.shape)}, captured with "
+                                 f"{static.dtype} {tuple(static.shape)}")
+            static.copy_(x, non_blocking=True)
+        entry.graph.replay()
+        _add_launches(entry.launches)
+        self.replays += 1
+        return entry.outputs
+
+    def _capture(self, key, fn, inputs):
+        dev = self.device
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(dev)
+            self.pool = torch.cuda.graph_pool_handle()
+        cur = torch.cuda.current_stream(dev)
+        static = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev) for x in inputs)
+        for s, x in zip(static, inputs):
+            s.copy_(x, non_blocking=True)
+        self.stream.wait_stream(cur)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        with torch.cuda.stream(self.stream):
+            first = _as_tuple(fn(*static))  # the warm-up: a real dispatch
+            t1 = time.perf_counter()
+            # the cached blocks of the general pool go back to the device, so
+            # that the graph's private pool can take their memory
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            before = _counters()
+            graph.capture_begin(self.pool, capture_error_mode="thread_local")
+            try:
+                outputs = _as_tuple(fn(*static))
+            finally:  # a failed capture ends (and raises) here too
+                graph.capture_end()
+        launches = tuple(a - b for a, b in zip(_counters(), before))
+        _add_launches([-n for n in launches])  # the capture launched nothing
+        grown = max(0, torch.cuda.memory_reserved(dev) - reserved)
+        self.pool_bytes += grown
+        if self.ledger is not None:
+            self.ledger.charge(f"graphs:{self.name}", grown)
+        for t in first:
+            t.record_stream(cur)
+        cur.wait_stream(self.stream)
+        self.graphs[key] = Captured(graph, static, outputs, launches)
+        self.warmup_seconds[key] = t1 - t0
+        self.capture_seconds[key] = time.perf_counter() - t1
+        return first
+
+
+def release() -> None:
+    """Destroy the graphs of every live runner (each captures again at its
+    next use).  An NCCL communicator must outlive the graphs that captured
+    its collectives: a process group destroyed under live ones hangs, so
+    ``parallel/distributed.py:finish`` calls this first."""
+    for runner in list(_runners):
+        if runner.graphs:
+            torch.cuda.synchronize(runner.device)
+            runner.graphs.clear()
+
+
+def _as_tuple(out) -> Tuple[torch.Tensor, ...]:
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def runner_for(device: torch.device, requested: bool, what: str, mesh=None,
+               ledger=None, generators: Sequence[torch.Generator] = ()) -> Optional[GraphRunner]:
+    """A ``GraphRunner`` for ``what`` on a CUDA ``device`` when ``requested``
+    and not over a gloo ``mesh`` (gloo stages collectives through host
+    memory, which a graph cannot hold); else None, the eager path, which a
+    card logs with its reason.  The CPU has no graphs."""
+    if device.type != "cuda":
+        return None
+    if not requested:
+        print(f"{what}: eager (graphs=False: the reference path)")
+        return None
+    if mesh is not None and mesh.backend != "nccl":
+        print(f"{what}: eager (the {mesh.backend} mesh stages its collectives through host "
+              f"memory, which a CUDA graph cannot capture)")
+        return None
+    return GraphRunner(what, device, ledger, generators)

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain version at
-small shapes, and the body mask and the fused per-volume pipeline against
-the same code on the CPU.  Skips without a GPU.  A GPU machine need not have JAX, which
+small shapes, the body mask and the fused per-volume pipeline against the
+same code on the CPU, and the CUDA graphs of the training dispatch units and
+the window's chunk forward against their eager paths.  Skips without a GPU.  A GPU machine need not have JAX, which
 ``tests/conftest.py`` imports, so run it there without the conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -401,3 +402,235 @@ def test_host_library_builds_clean_and_decodes_a_volume_from_the_card(gen, tmp_p
     want = img.get_fdata(np.float32)
     assert got.shape == want.shape and np.array_equal(got.view(np.uint32), want.view(np.uint32))
     assert hdr.raw == img.header.raw
+
+
+# --- CUDA graphs (``utils/graphs.py``): the training dispatch units and the
+# sliding window's chunk forward, each replayed against its eager path --------
+
+def _graph_tree(tmp):
+    """Three seeded 20x24x28 phantoms (a body block, a hot cube as the
+    lesion), written with the port's own NIfTI codec: 0001-0002 train, 0003
+    validates."""
+    from light_unet_tpu_torch.utils import nifti
+
+    rng = np.random.default_rng(5)
+    data = tmp / "proc"
+    (data / "images").mkdir(parents=True)
+    (data / "labels").mkdir()
+    aff = np.diag([4.0, 4.0, 4.0, 1.0])
+    for cid in ("0001", "0002", "0003"):
+        img = (0.2 * rng.random((20, 24, 28))).astype(np.float32)
+        img[3:17, 4:20, 4:24] += 0.3
+        lab = np.zeros(img.shape, np.uint8)
+        z, y, x = rng.integers(5, 12), rng.integers(6, 14), rng.integers(6, 18)
+        lab[z:z + 4, y:y + 4, x:x + 4] = 1
+        img[lab > 0] = 0.9
+        nifti.save(nifti.Nifti1Image(img, aff), data / f"images/{cid}_0000.nii.gz")
+        nifti.save(nifti.Nifti1Image(lab, aff), data / f"labels/{cid}.nii.gz")
+    splits = tmp / "splits"
+    splits.mkdir()
+    for name, ids in (("train", ["0001", "0002"]), ("val", ["0003"]), ("test", [])):
+        (splits / f"{name}_list.txt").write_text("".join(f"{i}\n" for i in ids))
+    return data, splits
+
+
+def _graph_trainer(tmp, name, graphs):
+    """A float32 trainer at 16^3 (K = 4, separable augmentation and dropout
+    on) whose corpus holds one planted row more: labels of 2, which the
+    wrapped loss turns into a non-finite step (skipped by GuardedAdamW)."""
+    from light_unet_tpu_torch.core.trainer import Trainer
+
+    data, splits = (tmp / "proc", tmp / "splits") if (tmp / "proc").exists() else _graph_tree(tmp)
+    cfg = {"data": {"patch_size": [16, 16, 16], "body_mask": {"enabled": False}},
+           "model": {"encoder_channels": [16, 32, 64, 128]},
+           "tpu": {"compute_dtype": "float32", "patch_batch": 8, "z_bucket": 16,
+                   "steps_per_dispatch": 4, "separable_augment": True},
+           "training": {"batch_size": 2, "learning_rate": 1e-3, "use_warmup": False},
+           "output": {"save_every_n_epochs": 1},
+           "data_dir": str(data), "splits_dir": str(splits)}
+    tr = Trainer(Config.from_dict(cfg), workdir=str(tmp / name), device="cuda", graphs=graphs)
+    assert (tr.graphs is not None) == graphs and tr.corpus is not None
+    c = tr.corpus
+    c.images = torch.cat([c.images, c.images[:1]])
+    c.labels = torch.cat([c.labels, torch.full_like(c.labels[:1], 2)])
+    base = tr.loss_fn
+
+    def loss_fn(probs, labels):
+        # a constant NaN added: the gradients stay finite, the loss does not
+        nan = torch.where((labels > 1).any(), float("nan"), 0.0)
+        return base(probs, labels) + nan
+
+    tr.loss_fn = loss_fn
+    tr.model.train()
+    tr._set_lr(1e-3)
+    return tr
+
+
+def _graph_units(tr):
+    """15 steps as five dispatch units: chains of 4 (the second with the
+    planted row in its second step), a tail chain of 2, a single step, a
+    chain of 4."""
+    draw = tr.train_loader.sample_corners
+    units = [np.stack([draw() for _ in range(k)]) for k in (4, 4, 2)] + [draw()]
+    units.append(np.stack([draw() for _ in range(4)]))
+    units[1][1, 0, 0] = tr.corpus.images.shape[0] - 1
+    return units
+
+
+def _run_units(tr, units):
+    losses = tr._flatten_losses([tr._step_on_batch(u) for u in units])
+    oks = torch.cat([o.reshape(-1) for o in tr._epoch_oks]).cpu().tolist()
+    tr._epoch_oks = []
+    return losses, oks
+
+
+def _state(tr):
+    return {k: getattr(tr.opt, k).detach().cpu().clone() for k in ("flat", "mu", "nu", "count")}
+
+
+def test_graphed_training_equals_the_eager_step(gen, tmp_path, monkeypatch):
+    """15 float32 steps (TF32 off) with a tail chain, a single step and a
+    planted non-finite batch: graphed and eager give the same losses (1e-5
+    relative), parameters and moments (1e-5 abs), skip flags and step
+    count, and leave the generator at the same offset.  Graph keys are the
+    JAX package's variants; the baked storage stays put.  cuDNN runs its
+    deterministic algorithms: its default backward algorithms sum in an
+    order that varies from run to run, eager or graphed, and Adam's
+    normalized step turns such last-bit differences into parameter
+    differences of up to a few learning rates."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    runs = {}
+    for graphs in (True, False):
+        tr = _graph_trainer(tmp_path, f"g{graphs}", graphs)
+        units = _graph_units(tr)
+        ptrs = [t.data_ptr() for t in (tr.opt.flat, tr.opt.mu, tr.opt.nu, tr.opt.count,
+                                       tr.opt.lr, tr.corpus.images, tr.corpus.labels)]
+        losses, oks = _run_units(tr, units)
+        assert ptrs == [t.data_ptr() for t in (tr.opt.flat, tr.opt.mu, tr.opt.nu, tr.opt.count,
+                                               tr.opt.lr, tr.corpus.images, tr.corpus.labels)]
+        runs[graphs] = (losses, oks, _state(tr), tr.gen.get_state(), tr)
+    (lg, og, sg, gg, tg), (le, oe, se, ge, _) = runs[True], runs[False]
+    assert sorted(k[:-1] for k in tg.graphs.graphs) == [("chain", 2), ("chain", 4), ("step",)]
+    assert tg.graphs.replays == 2 and len(lg) == 15
+    assert og == oe and og.count(0.0) == 1 and og[5] == 0.0
+    assert not np.isfinite(lg[5]) and not np.isfinite(le[5])
+    fin = [i for i in range(15) if i != 5]
+    assert max(abs(lg[i] - le[i]) / abs(le[i]) for i in fin) <= 1e-5
+    for k in ("flat", "mu", "nu"):
+        assert (sg[k] - se[k]).abs().max() <= 1e-5, k
+    assert int(sg["count"]) == int(se["count"]) == 14
+    assert torch.equal(gg, ge)
+
+
+def test_resumed_graphed_run_equals_the_uninterrupted_one(gen, tmp_path, monkeypatch):
+    """A graphed trainer saves after its first units, goes on, then resumes
+    from that checkpoint in place (its graphs already captured) and runs the
+    same units again; a fresh graphed trainer resumes too: both end where
+    the uninterrupted run ended (1e-5), generator state equal (cuDNN's
+    deterministic algorithms, as above)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    tr = _graph_trainer(tmp_path, "resume", True)
+    units = _graph_units(tr)
+    _run_units(tr, units[:3])
+    tr.save_checkpoint_file(0)
+    ckpt = tr.checkpoint_dir / "checkpoint_epoch_001.ckpt"
+    want_losses, _ = _run_units(tr, units[3:])
+    want, want_gen = _state(tr), tr.gen.get_state()
+    static = {k: [x.data_ptr() for x in c.inputs] for k, c in tr.graphs.graphs.items()}
+    again = [tr]
+    fresh = _graph_trainer(tmp_path, "resume_fresh", True)
+    again.append(fresh)
+    for t in again:
+        assert t.resume(ckpt)
+        losses, _ = _run_units(t, units[3:])
+        if t is tr:  # the static buffers the graphs read kept their storage
+            assert static == {k: [x.data_ptr() for x in c.inputs]
+                              for k, c in tr.graphs.graphs.items()}
+        got = _state(t)
+        assert np.allclose(losses, want_losses, rtol=1e-5, atol=0)
+        for k in ("flat", "mu", "nu"):
+            assert (got[k] - want[k]).abs().max() <= 1e-5, k
+        assert int(got["count"]) == int(want["count"])
+        assert torch.equal(t.gen.get_state(), want_gen)
+
+
+def _route_fn(route, dtype):
+    model = init_weights(build_model(ModelConfig(), dtype, inference=True,
+                                     use_pallas=route == "use_pallas"),
+                         torch.Generator().manual_seed(7)).cuda().eval()
+    return model, (make_fused_apply(model) if route == "fused_block" else model)
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-6), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("route", ["fused_block", "use_pallas"])
+def test_chunk_forward_graph_follows_a_weight_change(gen, route, dtype, bar):
+    """A chunk forward captured, replayed, then replayed again after an
+    in-place weight update agrees with the eager forward on the new weights
+    (float32 <= 1e-6 abs, bf16 <= 2e-2 relative to max(|ref|, 1)); the map
+    did change."""
+    from functools import partial
+
+    from light_unet_tpu_torch.ops.sliding_window import chunk_forward, chunk_key
+    from light_unet_tpu_torch.utils.graphs import GraphRunner
+
+    model, apply_fn = _route_fn(route, dtype)
+    runner = GraphRunner("window", "cuda")
+    fwd = partial(chunk_forward, apply_fn)
+    c1, c2 = (torch.rand((8, 16, 16, 16), generator=gen, device="cuda") for _ in range(2))
+    with torch.no_grad():
+        first = runner(chunk_key(apply_fn, c1), fwd, c1)[0].clone()
+        assert (first - fwd(c1)).abs().max() <= bar
+        before = runner(chunk_key(apply_fn, c2), fwd, c2)[0].clone()
+        for p in model.parameters():
+            p.mul_(1.25)
+        got = runner(chunk_key(apply_fn, c2), fwd, c2)[0].clone()
+        want = fwd(c2)
+    assert runner.replays == 2 and len(runner.graphs) == 1
+    err = (got - want).abs().max().item()
+    assert err <= bar * (1.0 if dtype == torch.float32 else max(want.abs().max().item(), 1.0))
+    assert (got - before).abs().max() > 10 * max(err, 1e-6)
+
+
+@pytest.mark.parametrize("route", ["fused_block", "use_pallas"])
+def test_chunk_forward_replays_count_kernel_launches(gen, route):
+    """Each replay adds the launches one eager forward makes to the kernel's
+    counter; the capture adds none."""
+    from functools import partial
+
+    from light_unet_tpu_torch.ops.sliding_window import chunk_forward, chunk_key
+    from light_unet_tpu_torch.utils.graphs import GraphRunner
+
+    _, apply_fn = _route_fn(route, torch.bfloat16)
+    mod = block_kernel if route == "fused_block" else norm_kernel
+    fwd = partial(chunk_forward, apply_fn)
+    c = torch.rand((8, 16, 16, 16), generator=gen, device="cuda")
+    with torch.no_grad():
+        n = mod.launches
+        fwd(c)
+        per_forward = mod.launches - n
+        assert per_forward == (8 if route == "fused_block" else 23)
+        runner = GraphRunner("window", "cuda")
+        n = mod.launches
+        runner(chunk_key(apply_fn, c), fwd, c)  # warm-up + capture
+        assert mod.launches == n + per_forward
+        for i in range(3):
+            runner(chunk_key(apply_fn, c), fwd, c)
+            assert mod.launches == n + (i + 2) * per_forward
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graphed_window_equals_the_eager_window(gen, dtype):
+    """``SlidingWindowInferencer`` with graphs (a chunk of 8 and a tail) and
+    with ``graphs=False``: the same map bit for bit."""
+    from light_unet_tpu_torch.ops.sliding_window import SlidingWindowInferencer
+
+    _, apply_fn = _route_fn("fused_block", dtype)
+    vol = np.random.default_rng(3).random((40, 30, 44), dtype=np.float32)
+    maps = []
+    for graphs in (True, False):
+        sw = SlidingWindowInferencer(apply_fn, (16, 16, 16), patch_batch=16, z_bucket=16,
+                                     graphs=graphs, device="cuda")
+        assert (sw.forward_graphs is not None) == graphs
+        maps.append(sw.fetch(sw.dispatch(sw.prepare(vol))))
+        maps.append(sw.fetch(sw.dispatch(sw.prepare(vol))))
+    assert all(np.array_equal(maps[0], m) for m in maps[1:])
