@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``light_unet_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the full check (one card, about 5-10 minutes)
+    python3 chip_smoke.py            # the full check (one card, about 6-8 minutes)
     python3 chip_smoke.py --quick    # build + kernel checks at a small batch only
     python3 chip_smoke.py --profile  # also trace fused_block serving, the fused pipeline, 20 training steps
 
@@ -100,7 +100,10 @@ Phases:
    by ``maybe_distributed_init``, ``all_reduce`` and
    ``reduce_scatter_tensor`` of uint8 on the card, then ``GuardedAdamW.step``
    (its gradient all-reduce) and a reduce-scatter captured in one CUDA
-   graph and replayed, equal to the eager calls; (b) on one card 2
+   graph and replayed, equal to the eager calls, then the patch-sharded
+   window (serving flags, bf16, ``fused_block``) with its ``psum`` captured
+   over the group and replayed, equal to the eager unit and to the
+   single-device window bit for bit; (b) on one card 2
    spawned ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
    card; gloo ranks train with the eager step, which the log says), on
    several cards one rank a card over NCCL, with the full-width
@@ -127,21 +130,39 @@ Phases:
    (b) the same in bf16, each path timed (median ms a step over 24 steps
    after capture, back to back, first unit with its capture), profiled
    (device busy share, host launch calls a unit) and its peak memory
-   logged; (c) a 192- and an 8-patch bf16 chunk forward per route, graphed
-   and eager: the maps' difference, device ms and host µs a call, and each
-   replay adding the eager forward's kernel launches to the counters; (d)
-   the fused pipeline under ``fused_block``, graphed and eager, two passes
-   each over the 4 raw volumes (vol/s; the first graphed pass pays the
-   captures), the maps compared;
-13. one JSON line of per-kernel numbers (launches summed over the runs under
+   logged; (d) the fused pipeline under ``fused_block``, graphed and eager,
+   two passes each over the 4 raw volumes (vol/s; the first graphed pass
+   pays the captures), the maps compared;
+13. the per-volume units: (a) the CCL kernel (``csrc/ccl.cu``) against its
+   plain version (the sweeps) on the 4 closed body masks of phase 5, two
+   served maps at 0.3 and 7 adversarial masks at 144x144x288 (a serpentine
+   of 72 sweep rounds, one blob, one-voxel components, empty, full, random
+   0.3 and 0.6): labels equal, the largest label difference reported;
+   timed on the body masks, served maps and random masks beside its bound
+   (mask read + labels written, 5 bytes a voxel) and, on the first two, the
+   sweeps; (b) the serving window (uint16 in and out, sparse fetch, packed
+   body mask) and its candidate table (one eager call profiled), and (c)
+   the fused program, each graphed and eager in every route and in bf16
+   and float32; (d) the preprocess pass; (e) the validation sweep (9
+   thresholds in one unit, the trainer's cap 4096; its 4x tier timed, one
+   eager call profiled): graphed and eager bit-identical, each replay
+   under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), host
+   ms to dispatch a volume and device ms, warm-up and capture seconds and
+   pool a key; (f) serving graphed and eager, one warmed ``Inferencer``
+   each, in alternating passes (vol/s, maps equal), and one eager serving
+   case split serially;
+14. one JSON line of per-kernel numbers (launches summed over the runs under
    the kernel's gate: serving, fused pipeline, the training phases'
    validation, the evaluate phase's serving and the multi-rank phase, each
-   logged; a graph replay counts every launch it holds), the ``nvidia-smi``
-   line, and last ``{"ok": true, "device": {...}}``.
+   logged, and the CCL kernel's in preprocess, serving and the fused
+   pipeline; a graph replay counts every launch it holds), the
+   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
-On one card the training dispatch units (phases 8, 10, 11's one-process
-references) and every single-device chunk forward (phases 6, 7, 8, 9, 10)
-run as CUDA graph replays, the port's default.
+On one card every dispatch unit runs as a CUDA graph replay, the port's
+default: the training units (phases 8, 10, 11's one-process references)
+and per volume the window, the fused program, the preprocess pass, the
+candidate table and the validation sweep (phases 5-10); phase 11a also
+replays the patch-sharded window over its one-rank NCCL group.
 
 Any failure raises and exits non-zero.  Float32 comparisons run with TF32 off.
 """
@@ -346,22 +367,6 @@ def host_us(fn, calls: int = 200) -> float:
     return seconds / calls * 1e6
 
 
-def enqueue_us(fn, reps: int = 5) -> float:
-    """Host µs to enqueue one call of ``fn`` on an idle device (the least of
-    ``reps`` calls, each after a synchronize): the host cost of a call,
-    which a full launch queue cannot stretch to the device's time."""
-    import torch
-
-    best = np.inf
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        best = min(best, time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    return best * 1e6
-
-
 def norm_phase(batch: int, gen, timed: bool):
     """K2 against its plain version; returns per-shape bf16 rows and the max errors."""
     import torch
@@ -538,11 +543,12 @@ def write_raw_cases(raw_dir: Path, seed: int, ids=None) -> list:
 
 
 def ccl_rounds(mask) -> int:
-    """Rounds ``ops/ccl.label_propagate`` takes on ``mask``: its sweeps,
-    counted here, with the labels held equal to its own."""
+    """Rounds the plain CCL (the JAX package's sweeps) takes on ``mask``,
+    counted here, with its labels held equal to ``ops/ccl.label_propagate``'s
+    (the CCL kernel on the card)."""
     import torch
 
-    from light_unet_tpu_torch.ops import ccl
+    from light_unet_tpu_torch.ops import ccl, ccl_kernel
 
     n = mask.numel()
     labels = torch.arange(1, n + 1, dtype=torch.int64, device=mask.device).reshape(mask.shape)
@@ -551,21 +557,24 @@ def ccl_rounds(mask) -> int:
     while True:
         prev, rounds = labels, rounds + 1
         for axis in range(3):
-            labels = ccl._axis_sweep(labels, axis, False, n + 1)
-            labels = ccl._axis_sweep(labels, axis, True, n + 1)
+            labels = ccl_kernel._axis_sweep(labels, axis, False, n + 1)
+            labels = ccl_kernel._axis_sweep(labels, axis, True, n + 1)
         if torch.equal(labels, prev):
             break
-    if not torch.equal(labels, ccl.label_propagate(mask)):
-        raise AssertionError("counted CCL sweeps disagree with label_propagate")
+    if not torch.equal(labels.to(torch.int32), ccl.label_propagate(mask)):
+        raise AssertionError("counted CCL sweeps disagree with label_propagate (the kernel)")
     return rounds
 
 
 def preprocess_phase(tmp: Path, config: dict) -> tuple:
     """Raw phantoms -> split -> ``run_preprocess`` on the card; one case held
-    against the CPU.  Returns (processed dir, val split file, raw image paths)."""
+    against the CPU.  Returns (processed dir, val split file, raw image paths,
+    {name: closed body mask} for the CCL checks of phase 13, the CCL kernel's
+    launches in ``run_preprocess``)."""
     import torch
 
     from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.ops import ccl_kernel
     from light_unet_tpu_torch.ops.body_mask import body_mask_core, body_mask_settings
     from light_unet_tpu_torch.ops.fused import normalize_and_body_mask
     from light_unet_tpu_torch.ops.intensity import compute_clip_values, pad_volume
@@ -574,6 +583,7 @@ def preprocess_phase(tmp: Path, config: dict) -> tuple:
     from light_unet_tpu_torch.pipeline.preprocess import run_preprocess
     from light_unet_tpu_torch.pipeline.split import split_dataset
     from light_unet_tpu_torch.utils import fastio, nifti
+    from light_unet_tpu_torch.utils.graphs import runner_for
     from light_unet_tpu_torch.utils.tracing import StageTimer
 
     raw, splits, processed = tmp / "raw", tmp / "splits", tmp / "processed"
@@ -586,7 +596,11 @@ def preprocess_phase(tmp: Path, config: dict) -> tuple:
         raise AssertionError(f"split put {manifest['split_sizes']} cases, not all 4 in val")
     cfg = Config.from_dict(config)
     calls = dict(fastio.calls)
+    ccl_kernel.launches = 0
     summaries = run_preprocess(cfg, raw, processed, splits, split="val", device="cuda")
+    ccl_launches = ccl_kernel.launches
+    if ccl_launches < N_CASES:
+        raise AssertionError(f"run_preprocess launched the CCL kernel {ccl_launches} times")
     val = summaries["val"]
     if val["successful"] != N_CASES or val["failed"]:
         raise AssertionError(f"preprocess failed: {val['failed_cases']}")
@@ -594,7 +608,8 @@ def preprocess_phase(tmp: Path, config: dict) -> tuple:
     if native["decode"] < N_CASES or native["order_stats"] < N_CASES:
         raise AssertionError(f"run_preprocess did not go through the host library: {native}")
     log(f"  run_preprocess on the card: {val['seconds'] / N_CASES:.2f} s per case "
-        f"(decode, percentiles, device pass, NIfTI writes); host library calls {native}")
+        f"(decode, percentiles, device pass: one graph replay a volume after the first, "
+        f"NIfTI writes); host library calls {native}; CCL kernel launches {ccl_launches}")
 
     # one case against the port's CPU run of the same pass
     cid = ids[0]
@@ -616,7 +631,11 @@ def preprocess_phase(tmp: Path, config: dict) -> tuple:
         f"{mmeta['voxel_counts']}, normalized max abs diff {err:.1e} (bar 1e-6)")
 
     # where one case's time goes, serially (the device pass computes the
-    # percentiles again: the line after the report subtracts them)
+    # percentiles again: the line after the report subtracts them); the
+    # device pass is a replay, as in run_preprocess after its first case
+    runner = runner_for(torch.device("cuda"), True, "preprocess")
+    normalize_and_body_mask(image, cfg.data.intensity, cfg.data.body_mask,
+                            z_bucket=cfg.tpu.z_bucket, device="cuda", runner=runner)
     timer = StageTimer()
     torch.cuda.synchronize()
     with timer.time("decode"):
@@ -626,7 +645,8 @@ def preprocess_phase(tmp: Path, config: dict) -> tuple:
                             cfg.data.intensity.clip_percentile_high)
     with timer.time("device pass"):
         norm, mask, _, _ = normalize_and_body_mask(image, cfg.data.intensity, cfg.data.body_mask,
-                                                   z_bucket=cfg.tpu.z_bucket, device="cuda")
+                                                   z_bucket=cfg.tpu.z_bucket, device="cuda",
+                                                   runner=runner)
     with timer.time("NIfTI writes"):
         nifti.save(nifti.Nifti1Image(norm, np.diag([4.0, 4.0, 4.0, 1.0])),
                    tmp / "phase_probe.nii.gz")
@@ -636,8 +656,10 @@ def preprocess_phase(tmp: Path, config: dict) -> tuple:
     log(f"    device pass less its percentiles (upload, normalize, body mask, fetch): "
         f"{split['device pass']['total_seconds'] - split['percentiles']['total_seconds']:.4f} s")
 
-    # the body-mask chain alone on the card, and its CCL rounds, per volume
+    # the body-mask chain alone on the card, and the CCL rounds the plain
+    # sweeps take on its closed mask, per volume (the masks go on to phase 13)
     settings = body_mask_settings(cfg.data.body_mask)
+    closed_masks = {}
     for cid in ids:
         norm = fastio.load_f32(processed / f"images/{cid}_0000.nii.gz")[0]
         padded = torch.from_numpy(pad_volume(norm, cfg.tpu.z_bucket)).cuda()
@@ -645,8 +667,10 @@ def preprocess_phase(tmp: Path, config: dict) -> tuple:
         ms = cuda_ms(lambda: body_mask_core(padded, valid, *settings), iters=3, warmup=1)
         closed = binary_closing((padded > settings[0]).float() * valid, settings[1], valid)
         log(f"  body-mask chain {tuple(padded.shape)}: {ms:.2f} ms (CUDA events), "
-            f"label_propagate {ccl_rounds(closed)} rounds, case {cid}")
-    return processed, splits / "val_list.txt", [raw / f"images/{i}_0000.nii.gz" for i in ids]
+            f"plain CCL {ccl_rounds(closed)} sweep rounds (the kernel: 3 launches), case {cid}")
+        closed_masks[f"closed body {cid}"] = closed.to(torch.uint8).cpu()
+    return (processed, splits / "val_list.txt", [raw / f"images/{i}_0000.nii.gz" for i in ids],
+            closed_masks, ccl_launches)
 
 
 def min_seconds(fn, reps: int = 3) -> float:
@@ -763,8 +787,11 @@ def check_gates(counts: dict, what: str) -> None:
     if counts["use_pallas"]["norm"] == 0:
         raise AssertionError(f"use_pallas {what} did not go through the norm kernel: "
                              f"{counts['use_pallas']}")
-    if counts["plain"] != dict(block=0, plain_block=0, norm=0):
+    if {k: v for k, v in counts["plain"].items() if k != "ccl"} != dict(block=0, plain_block=0,
+                                                                          norm=0):
         raise AssertionError(f"plain {what} launched a kernel: {counts['plain']}")
+    if not all(c["ccl"] for c in counts.values()):
+        raise AssertionError(f"a {what} did not go through the CCL kernel: {counts}")
 
 
 def check_against_plain(runs: dict, what: str) -> None:
@@ -927,16 +954,38 @@ def report_profile(prof, wall_s: float) -> None:
         log(f"    {e.self_device_time_total / 1e3:9.1f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
-def serve(config: dict, model_path: Path, data_dir: Path, split: Path, workdir: Path,
-          profile: bool = False):
-    """One ``infer_split`` run over the cases of ``split``; returns (vol/s,
-    {case: prob map})."""
+def profile_unit(fn, what: str) -> None:
+    """Device time by kernel of one ``fn()`` (``torch.profiler``)."""
     import torch
 
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    log(f"  [profile] {what}, one eager call:")
+    report_profile(prof, wall_s)
+
+
+def serve(config: dict, model_path: Path, data_dir: Path, split: Path, workdir: Path,
+          profile: bool = False, graphs: bool = True):
+    """One ``infer_split`` run over the cases of ``split`` by a new
+    ``Inferencer``; returns (vol/s, {case: prob map})."""
     from light_unet_tpu_torch.core.inferencer import Inferencer
+
+    inf = Inferencer(config, model_path, workdir=str(workdir), device="cuda", graphs=graphs)
+    return serve_with(inf, data_dir, split, workdir, profile)
+
+
+def serve_with(inf, data_dir: Path, split: Path, workdir: Path, profile: bool = False):
+    """One ``infer_split`` run of ``inf`` (whose workdir is ``workdir``);
+    returns (vol/s, {case: prob map})."""
+    import torch
+
     from light_unet_tpu_torch.utils import nifti
 
-    inf = Inferencer(config, model_path, workdir=str(workdir), device="cuda")
     torch.cuda.synchronize()
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA])
@@ -965,12 +1014,14 @@ def serve(config: dict, model_path: Path, data_dir: Path, split: Path, workdir: 
 
 
 def serving_phases(config: dict, model_path: Path, data_dir: Path, case_id: str,
-                   workdir: Path) -> None:
+                   workdir: Path, graphs: bool = True) -> dict:
     """One serving case serially through ``Inferencer``'s own steps, each
     timed with StageTimer and synchronized at its end: the decodes and
     ``prepare`` inside ``_load_case_inputs``, the dispatch (enqueue), the
     device work, then the candidate table, fetch, NIfTI write and JSON write
-    inside ``_finalize_case`` (its callees wrapped while it runs)."""
+    inside ``_finalize_case`` (its callees wrapped while it runs).  With
+    graphs the dispatch is one replay of the window and the candidate table
+    one replay of the table (the first case captured both)."""
     from unittest import mock
 
     import torch
@@ -979,7 +1030,8 @@ def serving_phases(config: dict, model_path: Path, data_dir: Path, case_id: str,
     from light_unet_tpu_torch.utils import fastio
     from light_unet_tpu_torch.utils.tracing import StageTimer
 
-    inf = inferencer_mod.Inferencer(config, model_path, workdir=str(workdir), device="cuda")
+    inf = inferencer_mod.Inferencer(config, model_path, workdir=str(workdir), device="cuda",
+                                    graphs=graphs)
     threshold = inf.config.validation.default_threshold
     if not inf.infer_case(case_id, data_dir, threshold):  # first launches, allocator
         raise AssertionError(f"serving {case_id} failed")
@@ -1001,8 +1053,8 @@ def serving_phases(config: dict, model_path: Path, data_dir: Path, case_id: str,
         dispatched = inf._dispatch(inputs["prepared"])
     with timer.time("device work"):
         torch.cuda.synchronize()
-    with mock.patch.object(inferencer_mod, "component_table_device",
-                           timed("candidate table", inferencer_mod.component_table_device)), \
+    with mock.patch.object(inferencer_mod, "run_unit",
+                           timed("candidate table", inferencer_mod.run_unit)), \
             mock.patch.object(inf.sw, "fetch", timed("fetch", inf.sw.fetch)), \
             mock.patch.object(inferencer_mod.nifti, "save", timed("NIfTI write",
                                                                   inferencer_mod.nifti.save)), \
@@ -1010,7 +1062,8 @@ def serving_phases(config: dict, model_path: Path, data_dir: Path, case_id: str,
                                                                  inferencer_mod.json.dump)):
         if not inf._finalize_case(case_id, inputs, dispatched, threshold):
             raise AssertionError(f"finalizing {case_id} failed")
-    report_stages(timer, f"one serving case ({case_id}, fused_block), serially")
+    return report_stages(timer, f"one serving case ({case_id}, fused_block, "
+                                f"{'graphed' if graphs else 'eager'}), serially")
 
 
 def train_config(data_dir: Path, splits: Path, **over) -> dict:
@@ -1167,10 +1220,17 @@ def count_launches(trainer) -> tuple:
     return launches, epoch_s, val_s
 
 
+def short_key(key: tuple) -> tuple:
+    """A graph key for the log: a training unit's key without its mode flag,
+    a per-volume unit's name and the shape of its first input."""
+    if key[0] in ("chain", "step", "host"):
+        return key[:-1]
+    return key[0], key[-1][0][0]
+
+
 def log_graphs(runner, what: str) -> None:
     """A ``GraphRunner``'s keys, warm-up and capture seconds, replays and pool."""
-    keys = {k[:2] if k[0] == "chunk" else k[:-1]: (round(runner.warmup_seconds[k], 3),
-                                                    round(runner.capture_seconds[k], 3))
+    keys = {short_key(k): (round(runner.warmup_seconds[k], 3), round(runner.capture_seconds[k], 3))
             for k in runner.graphs}
     log(f"  {what} graphs: {len(keys)} keys (key: warm-up s, capture s) {keys}; "
         f"{runner.replays} replays; pool {runner.pool_bytes / 2**30:.2f} GiB")
@@ -1189,14 +1249,16 @@ def unit_keys(steps: int, k: int) -> set:
 def check_graphs(trainer, steps: int) -> None:
     """The trainer ran graphed: its keys are the JAX package's variants for an
     epoch of ``steps`` corpus steps at its K, and validation replayed its
-    chunk forwards."""
+    window units."""
     want = unit_keys(steps, trainer._chain)
     got = {key[:-1] for key in trainer.graphs.graphs}
     log_graphs(trainer.graphs, "training")
-    log_graphs(trainer.sw.forward_graphs, "validation window")
-    if got != want or not trainer.graphs.replays or not trainer.sw.forward_graphs.replays:
+    log_graphs(trainer.sw.graphs, "validation window")
+    if trainer._val_sweep is not None and trainer._val_sweep.graphs is not None:
+        log_graphs(trainer._val_sweep.graphs, "validation sweep")
+    if got != want or not trainer.graphs.replays or not trainer.sw.graphs.replays:
         raise AssertionError(f"training graph keys {got}, want {want}; replays "
-                             f"{trainer.graphs.replays}, window {trainer.sw.forward_graphs.replays}")
+                             f"{trainer.graphs.replays}, window {trainer.sw.graphs.replays}")
 
 
 def train_phase(tmp: Path, data_dir: Path, ids: list, smi: str, profile: bool = False) -> tuple:
@@ -1684,67 +1746,336 @@ def graph_timing(data_dir: Path, splits: Path, tmp: Path, smi: str) -> dict:
     return rows
 
 
-def forward_graphs_phase(state: dict, gen, smi: str) -> list:
-    """12c: one chunk forward of 192 and of 8 patches (48^3, bf16, full
-    width, the serving weights) per route, graphed (``GraphRunner`` +
-    ``chunk_forward``, as the window runs it) and eager: the maps'
-    difference, device ms a call (CUDA events), host µs to enqueue a call
-    (``enqueue_us``); each replay adds the eager forward's kernel launches
-    to the counters."""
-    from functools import partial
+def serpentine(depth: int, height: int, width: int) -> np.ndarray:
+    """Rows along the last axis at even y, joined at alternating ends by one
+    voxel at odd y, in every z-plane: the plain sweeps carry the last row's
+    label one row a round (``tests/torch_ccl_masks.py`` has the same)."""
+    m = np.zeros((depth, height, width), np.uint8)
+    m[:, 0::2, :] = 1
+    for y in range(1, height - 1, 2):
+        m[:, y, width - 1 if (y // 2) % 2 == 0 else 0] = 1
+    return m
 
+
+def ccl_masks(closed: dict, maps: dict, shape=(144, 144, 288)) -> dict:
+    """13a's masks: the closed body masks of phase 5, phase 6's served maps
+    at the serving threshold, and the adversarial masks at the padded serving
+    shape (a serpentine of one row a sweep round, one large blob, every
+    other voxel its own component, empty, full, random)."""
+    import torch
+
+    zz, yy, xx = np.ogrid[: shape[0], : shape[1], : shape[2]]
+    c = [s / 2.0 for s in shape]
+    rng = np.random.default_rng(13)
+    masks = dict(closed)
+    masks.update({f"served map {c} >= 0.3": torch.from_numpy((m >= 0.3).astype(np.uint8))
+                  for c, m in list(maps.items())[:2]})
+    adversarial = {
+        "serpentine": serpentine(*shape),
+        "one large blob": ((zz - c[0]) ** 2 / (c[0] - 2) ** 2 + (yy - c[1]) ** 2
+                           / (c[1] - 2) ** 2 + (xx - c[2]) ** 2 / (c[2] - 4) ** 2 <= 1.0),
+        "one-voxel components": (zz + yy + xx) % 2 == 0,
+        "empty": np.zeros(shape, bool),
+        "full": np.ones(shape, bool),
+        "random 0.3": rng.random(shape) < 0.3,
+        "random 0.6": rng.random(shape) < 0.6,
+    }
+    masks.update({k: torch.from_numpy(np.ascontiguousarray(v).astype(np.uint8))
+                  for k, v in adversarial.items()})
+    return masks
+
+
+def ccl_phase(masks: dict, smi: str) -> tuple:
+    """13a: the CCL kernel (``csrc/ccl.cu``) against its plain version (the
+    sweeps) on every mask: int32 labels equal.  Timed (CUDA events) on the
+    closed body masks (the body mask's call), the served maps (the candidate
+    table's) and the random masks: the kernel, and on the first two the
+    plain sweeps, beside the bound: the mask read (1 byte a voxel) and the
+    labels written (4), at the card's memory rate.  Returns ({mask: row},
+    the largest |kernel - plain| label difference over every mask)."""
+    import torch
+
+    from light_unet_tpu_torch.ops import ccl_kernel
+
+    rows, max_err = {}, 0
+    for name, mask in masks.items():
+        m = mask.cuda()
+        got = ccl_kernel.connected_labels(m)
+        want = ccl_kernel.sweep_labels(m)
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        if err:
+            bad = int((got != want).sum())
+            raise AssertionError(f"CCL kernel and plain sweeps differ on {name}: {bad} voxels")
+        seeds = torch.arange(1, m.numel() + 1, device=m.device, dtype=torch.int32)
+        row = dict(rounds=ccl_rounds(m), components=int((got.reshape(-1) == seeds).sum()))
+        if name.startswith(("closed body", "served map", "random")):
+            row["ms"] = cuda_ms(lambda: ccl_kernel.connected_labels(m), iters=10)
+            row["bound_ms"] = 5.0 * m.numel() / HBM_BYTES_PER_S * 1e3
+        if name.startswith(("closed body", "served map")):
+            row["plain_ms"] = cuda_ms(lambda: ccl_kernel.sweep_labels(m), iters=2, warmup=1)
+        rows[name] = row
+        timing = (f"; kernel {row['ms']:.3f} ms ({row['ms'] / row['bound_ms']:.1f}x its bound "
+                  f"{row['bound_ms']:.4f} ms)" if "ms" in row else "")
+        timing += f", plain {row['plain_ms']:.1f} ms" if "plain_ms" in row else ""
+        log(f"  [13a] {name} {tuple(m.shape)}: labels equal ({row['components']} components, "
+            f"plain {row['rounds']} sweep rounds){timing}")
+        del m, got, want
+    if max(r["rounds"] for r in rows.values()) <= 20:
+        raise AssertionError("no mask needed more than 20 sweep rounds")
+    timed = [r for k, r in rows.items() if k.startswith("closed body")]
+    log(f"  [13a] CCL kernel on the closed body masks: {min(r['ms'] for r in timed):.3f}-"
+        f"{max(r['ms'] for r in timed):.3f} ms a call, plain sweeps "
+        f"{min(r['plain_ms'] for r in timed):.1f}-{max(r['plain_ms'] for r in timed):.1f} ms, "
+        f"bound {timed[0]['bound_ms']:.4f} ms (bytes) on {smi}")
+    return rows, max_err
+
+
+def no_sync(fn, *args):
+    """``fn(*args)`` with every synchronizing CUDA call an error
+    (``torch.cuda.set_sync_debug_mode("error")``), after a sync, and its
+    host seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def timed_dispatch(fn, *args):
+    """(output, host seconds to enqueue, device ms from the first enqueue to
+    the end of the work) of one dispatch on an idle card."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    host = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return out, host, start.elapsed_time(end)
+
+
+def graph_summary(runner) -> str:
+    if runner is None:
+        return "eager"
+    return (f"warm-up {sum(runner.warmup_seconds.values()):.2f} s, capture "
+            f"{sum(runner.capture_seconds.values()):.2f} s for {len(runner.graphs)} key(s), pool "
+            f"{runner.pool_bytes / 2**30:.2f} GiB, {runner.replays} replays")
+
+
+def route_model(state: dict, gates: dict, dtype):
     import torch
 
     from light_unet_tpu_torch.config import Config
     from light_unet_tpu_torch.models.fused_forward import make_fused_apply
     from light_unet_tpu_torch.models.unet3d import build_model
-    from light_unet_tpu_torch.ops import block_kernel, norm_kernel
-    from light_unet_tpu_torch.ops.sliding_window import chunk_forward, chunk_key
-    from light_unet_tpu_torch.utils.graphs import GraphRunner
 
-    rows = []
-    for route, gates in GATES:
-        model = build_model(Config.from_dict(SERVING).model, torch.bfloat16, inference=True,
-                            use_pallas=gates["use_pallas"])
-        model.load_state_dict(state, strict=True)
-        model = model.cuda().eval()
-        apply_fn = make_fused_apply(model) if gates["fused_block"] else model
-        fwd = partial(chunk_forward, apply_fn)
-        for n in (192, 8):
-            c = torch.rand((n, 48, 48, 48), generator=gen, device="cuda")
-            runner = GraphRunner("window", "cuda")
-            key = chunk_key(apply_fn, c)
-            with torch.no_grad():
-                eager = fwd(c)
-                runner(key, fwd, c)
-                counts = (block_kernel.launches, norm_kernel.launches)
-                graphed = runner(key, fwd, c)[0].clone()
-                per_replay = (block_kernel.launches - counts[0], norm_kernel.launches - counts[1])
-                counts = (block_kernel.launches, norm_kernel.launches)
-                fwd(c)
-                per_eager = (block_kernel.launches - counts[0], norm_kernel.launches - counts[1])
-                err = float((graphed - eager).abs().max())
-                bits = bool(torch.equal(graphed, eager))
-                iters = 10 if n == 192 else 50
-                ms_e = cuda_ms(lambda: fwd(c), iters=iters)
-                ms_g = cuda_ms(lambda: runner(key, fwd, c), iters=iters)
-                us_e = enqueue_us(lambda: fwd(c))
-                us_g = enqueue_us(lambda: runner(key, fwd, c))
-            rows.append(dict(route=route, n=n, err=err, bits=bits, ms_e=ms_e, ms_g=ms_g,
-                             us_e=us_e, us_g=us_g, capture_s=sum(runner.capture_seconds.values()),
-                             per_replay=per_replay))
-            log(f"  [12c] {route}, {n} patches bf16: graphed vs eager max abs diff {err:.3e} "
-                f"(bit-identical: {bits}); device {ms_g:.3f} vs {ms_e:.3f} ms a call; host "
-                f"{us_g:.0f} vs {us_e:.0f} µs to enqueue a call; capture {rows[-1]['capture_s']:.2f} s, "
-                f"pool {runner.pool_bytes / 2**30:.2f} GiB; launches a replay (block, norm) "
-                f"{per_replay}, eager {per_eager} on {smi}")
-            if per_replay != per_eager or err > 2e-2 * max(float(eager.abs().max()), 1.0):
-                raise AssertionError(f"{route} {n}: replay launches {per_replay} vs {per_eager}, "
-                                     f"err {err}")
-            del runner, eager, graphed, c
+    model = build_model(Config.from_dict(SERVING).model, dtype, inference=True,
+                        use_pallas=gates["use_pallas"])
+    model.load_state_dict(state, strict=True)
+    model = model.cuda().eval()
+    return make_fused_apply(model) if gates["fused_block"] else model
+
+
+def units_phase(state: dict, data_dir: Path, ids: list, raw_paths: list, smi: str) -> dict:
+    """13b-e: each per-volume unit graphed (one replay) and eager
+    (``graphs=False``), bit-identical, per route and in bf16 and float32:
+    the serving window (uint16 in and out, sparse fetch, packed body mask)
+    and its candidate table, the fused program, then the preprocess pass and
+    the validation sweep.  The first graphed dispatch of a key captures it;
+    the next volume's dispatch is a replay run under
+    ``set_sync_debug_mode("error")``.  Logged: host ms to dispatch a volume
+    and device ms, graphed and eager; capture seconds and pool a key."""
+    import functools
+
+    import torch
+
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.core.inferencer import MAX_DEVICE_COMPONENTS, table_unit
+    from light_unet_tpu_torch.ops import fused
+    from light_unet_tpu_torch.ops.fused import FusedVolumePipeline
+    from light_unet_tpu_torch.ops.sliding_window import SlidingWindowInferencer
+    from light_unet_tpu_torch.ops.val_metrics import DeviceValidationSweep
+    from light_unet_tpu_torch.utils import fastio
+    from light_unet_tpu_torch.utils.device import precision_scope
+    from light_unet_tpu_torch.utils.graphs import run_unit, runner_for, unit_key
+
+    tpu = SERVING["tpu"]
+    vols = [fastio.load_f32(data_dir / f"images/{c}_0000.nii.gz")[0] for c in ids[:2]]
+    bodies = [fastio.load_f32(data_dir / f"body_masks/{c}.nii.gz")[0] for c in ids[:2]]
+    raws = [fastio.load_f32(p)[0] for p in raw_paths[:2]]
+    cfg = Config.from_dict(SERVING)
+    thr = torch.full((), 0.3, device="cuda")
+    table = functools.partial(table_unit, max_components=MAX_DEVICE_COMPONENTS)
+    rows, served = [], None
+
+    def run_pair(make, prepare, dispatch, result):
+        """Graphed (capture on volume 0, replay on volume 1 without a sync)
+        then eager on volume 1: (equal, {graphed/eager: host ms, device ms},
+        graphed runner summary, graphed outputs)."""
+        out, times, summary = {}, {}, ""
+        for graphs in (True, False):
+            engine = make(graphs)
+            preps = [prepare(engine, i) for i in (0, 1)]
+            if graphs:
+                dispatch(engine, preps[0])
+                no_sync(dispatch, engine, preps[1])  # the replay: no host sync inside
+            res, host, dev = timed_dispatch(dispatch, engine, preps[1])
+            out[graphs] = result(res)
+            times[graphs] = (host * 1e3, dev)
+            if graphs:
+                summary = graph_summary(engine.graphs)
+            del engine, preps, res
             torch.cuda.empty_cache()
-        del model, apply_fn, fwd
+        same = all(torch.equal(a, b) for a, b in zip(out[True], out[False]))
+        return same, times, summary, out[True]
+
+    for route, gates in GATES:
+        for dtype in (torch.bfloat16, torch.float32):
+            apply_fn = route_model(state, gates, dtype)
+            dname = "bf16" if dtype == torch.bfloat16 else "f32"
+            with torch.no_grad(), precision_scope(dtype):
+                def make_sw(graphs):
+                    return SlidingWindowInferencer(
+                        apply_fn, SERVING["data"]["patch_size"], 0.5, tpu["patch_batch"],
+                        tpu["z_bucket"], "uint16", "uint16", sparse_fetch=True,
+                        host_prefetch=False, graphs=graphs, device="cuda")
+
+                same, times, summary, graphed = run_pair(
+                    make_sw, lambda e, i: e.prepare(vols[i], bodies[i]),
+                    lambda e, p: e.dispatch(p),
+                    lambda res: tuple(t for t in res[0] if isinstance(t, torch.Tensor)))
+                # the candidate table of the same map, graphed and eager
+                runner = runner_for(torch.device("cuda"), True, "table")
+                key = unit_key("table", max_components=MAX_DEVICE_COMPONENTS)
+                run_unit(runner, key, table, graphed[0], thr)
+                tab_g, _ = no_sync(run_unit, runner, key, table, graphed[0], thr)
+                tab_e = run_unit(None, key, table, graphed[0], thr)
+                tab_same = all(torch.equal(a, b) for a, b in zip(tab_g, tab_e))
+                _, tab_host_g, tab_dev_g = timed_dispatch(run_unit, runner, key, table,
+                                                          graphed[0], thr)
+                _, tab_host_e, tab_dev_e = timed_dispatch(run_unit, None, key, table,
+                                                          graphed[0], thr)
+                if route == "fused_block" and dtype == torch.bfloat16:
+                    served = graphed[0]
+                    profile_unit(lambda: run_unit(None, key, table, served, thr),
+                                 f"candidate table ({tuple(served.shape)}, cap "
+                                 f"{MAX_DEVICE_COMPONENTS})")
+                rows.append(dict(unit="window", route=route, dtype=dname, same=same,
+                                 times=times))
+                rows.append(dict(unit="table", route=route, dtype=dname, same=tab_same,
+                                 times={True: (tab_host_g * 1e3, tab_dev_g),
+                                        False: (tab_host_e * 1e3, tab_dev_e)}))
+                log(f"  [13b] serving window, {route} {dname}: graphed vs eager bit-identical "
+                    f"{same}; host ms to dispatch a volume {times[True][0]:.2f} vs "
+                    f"{times[False][0]:.2f}, device ms {times[True][1]:.1f} vs "
+                    f"{times[False][1]:.1f}; {summary}; candidate table bit-identical "
+                    f"{tab_same}, host ms {tab_host_g * 1e3:.2f} vs {tab_host_e * 1e3:.2f}, device "
+                    f"ms {tab_dev_g:.2f} vs {tab_dev_e:.2f}; {graph_summary(runner)} on {smi}")
+                del runner
+
+                pcfg = Config.from_dict(SERVING)
+                pcfg.tpu.compute_dtype = "bfloat16" if dtype == torch.bfloat16 else "float32"
+
+                def make_fused(graphs):
+                    return FusedVolumePipeline(apply_fn, pcfg, patch_batch=tpu["patch_batch"],
+                                               host_prefetch=False, graphs=graphs, device="cuda")
+
+                same, times, summary, _ = run_pair(
+                    make_fused, lambda e, i: e.prepare(raws[i]), lambda e, p: e.dispatch(p),
+                    lambda res: tuple(t for t in res[0] if isinstance(t, torch.Tensor)))
+                rows.append(dict(unit="fused", route=route, dtype=dname, same=same, times=times))
+                log(f"  [13c] fused program, {route} {dname}: graphed vs eager bit-identical "
+                    f"(map, tile count, tiles) {same}; host ms to dispatch a volume "
+                    f"{times[True][0]:.2f} vs {times[False][0]:.2f}, device ms "
+                    f"{times[True][1]:.1f} vs {times[False][1]:.1f}; {summary} on {smi}")
+            del apply_fn
+            torch.cuda.empty_cache()
+
+    # 13d: the preprocess pass (no network)
+    class Pass:  # the preprocess pass as an engine with a runner, for run_pair
+        def __init__(self, graphs):
+            self.graphs = runner_for(torch.device("cuda"), graphs, "preprocess")
+
+    same, times, summary, _ = run_pair(
+        Pass, lambda e, i: fused.prepare_preprocess(raws[i], cfg.data.intensity,
+                                                     tpu["z_bucket"], "cuda"),
+        lambda e, p: fused.dispatch_preprocess(p, cfg.data.intensity, cfg.data.body_mask,
+                                               e.graphs),
+        lambda res: res)
+    rows.append(dict(unit="preprocess", route="-", dtype="f32", same=same, times=times))
+    log(f"  [13d] preprocess pass (normalize, body mask, counts): graphed vs eager bit-identical "
+        f"{same}; host ms to dispatch a volume {times[True][0]:.2f} vs {times[False][0]:.2f}, "
+        f"device ms {times[True][1]:.1f} vs {times[False][1]:.1f}; {summary} on {smi}")
+
+    # 13e: the validation sweep on the served map (every threshold in one unit)
+    label = fastio.load_f32(data_dir / f"labels/{ids[1]}.nii.gz")[0]
+    gt = np.zeros(served.shape, np.uint8)
+    gt[: label.shape[0], : label.shape[1], : label.shape[2]] = label > 0.5
+    gt = torch.from_numpy(gt).cuda()
+    thresholds = [0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9]
+
+    def make_sweep(graphs, cap=4096):  # the trainer's cap, and its 4x escalation tier
+        return DeviceValidationSweep(thresholds, max_components=cap, graphs=graphs,
+                                     device="cuda")
+
+    same, times, summary, _ = run_pair(make_sweep, lambda e, i: served,
+                                       lambda e, p: e.tables(p, gt), lambda res: res)
+    rows.append(dict(unit="sweep", route="-", dtype="-", same=same, times=times))
+    big = make_sweep(True, 4 * 4096)
+    big.tables(served, gt)
+    _, big_host, big_dev = timed_dispatch(big.tables, served, gt)
+    log(f"  [13e] validation sweep, {len(thresholds)} thresholds in one unit, cap 4096 (the "
+        f"trainer's): graphed vs eager bit-identical {same}; host ms {times[True][0]:.2f} vs "
+        f"{times[False][0]:.2f}, device ms {times[True][1]:.1f} vs {times[False][1]:.1f} "
+        f"({times[True][1] / len(thresholds):.2f} ms a threshold graphed); {summary}; cap 16384 "
+        f"(the escalation tier) graphed: host ms {big_host * 1e3:.2f}, device ms {big_dev:.1f} "
+        f"({big_dev / len(thresholds):.2f} ms a threshold) on {smi}")
+    del big
+    profile_unit(lambda: make_sweep(False).tables(served, gt),
+                 f"validation sweep ({len(thresholds)} thresholds, cap 4096)")
+    bad = [(r["unit"], r["route"], r["dtype"]) for r in rows if not r["same"]]
+    if bad:
+        raise AssertionError(f"graphed and eager differ: {bad}")
     return rows
+
+
+def serving_ab(cfg: dict, model_path: Path, data_dir: Path, split: Path, tmp: Path,
+               reference: dict, smi: str) -> None:
+    """13f: serving graphed and eager under the same conditions: one
+    ``Inferencer`` each, both warmed by a first pass (the graphed one
+    captures its keys there), then timed passes in the order graphed,
+    eager, eager, graphed, graphed, eager.  The maps of every pass equal
+    phase 6's."""
+    from light_unet_tpu_torch.core.inferencer import Inferencer
+
+    infs = {g: Inferencer(cfg, model_path, workdir=str(tmp / f"serve_ab_{g}"), device="cuda",
+                          graphs=g) for g in (True, False)}
+    warm = {g: serve_with(inf, data_dir, split, tmp / f"serve_ab_{g}")[0]
+            for g, inf in infs.items()}
+    rates = {True: [], False: []}
+    for g in (True, False, False, True, True, False):
+        vps, maps = serve_with(infs[g], data_dir, split, tmp / f"serve_ab_{g}")
+        if not all(np.array_equal(maps[c], reference[c]) for c in reference):
+            raise AssertionError(f"{'graphed' if g else 'eager'} serving maps differ from phase 6's")
+        rates[g].append(vps)
+
+    def fmt(xs):
+        return ", ".join(f"{x:.3f}" for x in xs)
+
+    log(f"  [13f] serving, fused_block, {N_CASES} cases a pass, one Inferencer each, warmed "
+        f"(first pass: graphed {warm[True]:.3f}, eager {warm[False]:.3f} vol/s); passes "
+        f"g e e g g e: graphed {fmt(rates[True])} (mean {np.mean(rates[True]):.3f}), eager "
+        f"{fmt(rates[False])} (mean {np.mean(rates[False]):.3f}) vol/s; maps equal phase 6's "
+        f"on {smi}")
 
 
 def free_port() -> int:
@@ -1755,9 +2086,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def nccl_phase() -> None:
+def nccl_phase(state: dict, volume: np.ndarray, body: np.ndarray) -> None:
     """11a: a one-rank NCCL group on cuda:0 through ``maybe_distributed_init``;
-    ``all_reduce`` and ``reduce_scatter_tensor`` of uint8 run on the card."""
+    ``all_reduce`` and ``reduce_scatter_tensor`` of uint8 run on the card;
+    graphed: the optimizer step, and the patch-sharded window."""
     import torch
 
     from light_unet_tpu_torch.config import TpuConfig
@@ -1781,6 +2113,7 @@ def nccl_phase() -> None:
         log(f"  [11a] one-rank NCCL {'.'.join(map(str, torch.cuda.nccl.version()))} group on "
             f"cuda:0: all_reduce and reduce_scatter_tensor of uint8 ran on the card")
         nccl_graph_check(mesh)
+        nccl_window_check(mesh, state, volume, body)
     finally:
         distributed.finish()
 
@@ -1820,6 +2153,45 @@ def nccl_graph_check(mesh) -> None:
         f"non-finite step): outputs and optimizer state equal to the eager calls: {all(same)}")
     if not all(same) or runner.replays != 3 or int(opts[0].count) != 3:
         raise AssertionError(f"NCCL graph replays differ from the eager calls: {same}")
+
+
+def nccl_window_check(mesh, state: dict, volume: np.ndarray, body: np.ndarray) -> None:
+    """11a, graphed: the patch-sharded window (``window_unit`` on a mesh: the serving
+    flags, full width, bf16, ``fused_block``) over the one-rank NCCL mesh,
+    its ``psum`` of prob and count captured, replayed, equal bit for bit to
+    the same unit run eagerly and to the single-device window."""
+    import functools
+
+    import torch
+
+    from light_unet_tpu_torch.ops import block_kernel
+    from light_unet_tpu_torch.ops.sliding_window import SlidingWindowInferencer
+    from light_unet_tpu_torch.utils.graphs import run_unit, runner_for, unit_key
+
+    tpu = SERVING["tpu"]
+    engine = SlidingWindowInferencer(
+        route_model(state, dict(GATES)["fused_block"], torch.bfloat16),
+        SERVING["data"]["patch_size"], 0.5, tpu["patch_batch"], tpu["z_bucket"], "uint16",
+        "uint16", sparse_fetch=True, host_prefetch=False, graphs=False, device="cuda")
+    key, fn, inputs = engine.unit(engine.prepare(volume, body))
+    sharded = functools.partial(fn, mesh=mesh)  # window_unit, patch-sharded
+    skey = unit_key("sharded", engine.apply_fn, **{k: v for k, v in key[5:]})
+    runner = runner_for(torch.device("cuda:0"), True, "sharded", mesh=mesh)
+    with torch.no_grad():
+        single = run_unit(None, key, fn, *inputs)
+        eager = run_unit(None, skey, sharded, *inputs)
+        run_unit(runner, skey, sharded, *inputs)
+        n = block_kernel.launches
+        replay = run_unit(runner, skey, sharded, *inputs)
+        per_replay = block_kernel.launches - n
+    torch.cuda.synchronize()
+    same = [all(torch.equal(a, b) for a, b in zip(replay, other)) for other in (eager, single)]
+    log(f"  [11a] graphed on NCCL: the patch-sharded window (psum of prob and count) over the "
+        f"one-rank group, {graph_summary(runner)}: the replay equal to the eager unit "
+        f"{same[0]} and to the single-device window {same[1]}; block-kernel launches a replay "
+        f"{per_replay}")
+    if not all(same) or runner.replays != 1 or per_replay == 0:
+        raise AssertionError(f"sharded window graph over NCCL: {same}, replays {runner.replays}")
 
 
 # phase 11b's serving runs: (name, tpu overrides of SERVING)
@@ -2064,7 +2436,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 2
     from light_unet_tpu_torch.models.unet3d import build_model, init_weights
-    from light_unet_tpu_torch.ops import _build, block_kernel, norm_kernel
+    from light_unet_tpu_torch.ops import _build, block_kernel, ccl_kernel, norm_kernel
     from light_unet_tpu_torch.utils import fastio
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2126,7 +2498,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO) as tmp:
         tmp = Path(tmp)
         # 5. raw -> split -> preprocess on the card
-        data_dir, split, raw_paths = preprocess_phase(tmp, SERVING)
+        data_dir, split, raw_paths, closed_masks, preprocess_ccl = preprocess_phase(tmp, SERVING)
 
         # 5b. the host I/O library against its plain versions, and its times
         log(f"[host io] utils/fastio.py (csrc/fastio.cpp) on the card's host")
@@ -2145,11 +2517,12 @@ def main(argv=None) -> int:
             cfg = json.loads(json.dumps(SERVING))
             cfg["tpu"].update(gates)
             block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
+            ccl_kernel.launches = 0
             decodes = fastio.calls["decode"]
             vps, maps = serve(cfg, model_path, data_dir, split, tmp / name,
                               profile=args.profile and name == "fused_block")
             counts[name] = dict(block=block_kernel.launches, plain_block=block_kernel.plain_calls,
-                                norm=norm_kernel.launches)
+                                norm=norm_kernel.launches, ccl=ccl_kernel.launches)
             runs[name] = maps
             decodes = fastio.calls["decode"] - decodes
             if decodes != 2 * N_CASES:
@@ -2174,12 +2547,13 @@ def main(argv=None) -> int:
             for k, v in gates.items():
                 setattr(cfg.tpu, k, v)
             block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
+            ccl_kernel.launches = 0
             calls = dict(fastio.calls)
             vps, peak, maps, preps, pipe = fused_run(
                 cfg, state, raw_paths, profile=args.profile and name == "fused_block")
             fused_counts[name] = dict(block=block_kernel.launches,
                                       plain_block=block_kernel.plain_calls,
-                                      norm=norm_kernel.launches)
+                                      norm=norm_kernel.launches, ccl=ccl_kernel.launches)
             native = {k: fastio.calls[k] - calls[k] for k in calls}
             if native != dict(decode=N_CASES, order_stats=N_CASES, quantize_pad=N_CASES):
                 raise AssertionError(f"{name} fused pipeline: host library calls {native}")
@@ -2216,8 +2590,8 @@ def main(argv=None) -> int:
         log(f"[multi-rank] one-rank NCCL group, then {multirank_layout()} (ranks, backend): "
             f"{ids[0]} served patch- and slab-sharded, data-parallel training")
         t0 = time.perf_counter()
-        nccl_phase()
         body = fastio.load_f32(data_dir / f"body_masks/{ids[0]}.nii.gz")[0]
+        nccl_phase(state, fastio.load_f32(data_dir / f"images/{ids[0]}_0000.nii.gz")[0], body)
         multirank_counts = multirank_phase(tmp, data_dir, ids[0], model_path,
                                            runs["fused_block"][ids[0]], body,
                                            1.0 / serving_vps, smi)
@@ -2225,15 +2599,26 @@ def main(argv=None) -> int:
 
         # 12. the dispatch units as CUDA graphs against the eager path
         log("[graphs] phase 8's configuration graphed and eager (the explicit argument); "
-            "chunk forwards graphed and eager per route")
+            "the fused pipeline graphed and eager")
         t0 = time.perf_counter()
         graph_agreement(data_dir, tmp / "train_splits", tmp)
         graph_timing(data_dir, tmp / "train_splits", tmp, smi)
-        forward_graphs_phase(state, gen, smi)
         fused_graphs_ab(state, raw_paths, smi)
         log(f"  graphs phase {time.perf_counter() - t0:.1f} s on {smi}")
 
-    # 13. results
+        # 13. the per-volume units: the CCL kernel, graphed against eager, no host sync
+        log("[units] the CCL kernel against the plain sweeps; each per-volume unit graphed "
+            "and eager per route and dtype; serving graphed and eager")
+        t0 = time.perf_counter()
+        ccl_rows, ccl_err = ccl_phase(ccl_masks(closed_masks, runs["fused_block"]), smi)
+        unit_rows = units_phase(state, data_dir, ids, raw_paths, smi)
+        cfg = json.loads(json.dumps(SERVING))
+        serving_ab(cfg, model_path, data_dir, split, tmp, runs["fused_block"], smi)
+        serving_phases(cfg, model_path, data_dir, split.read_text().split()[0],
+                       tmp / "serving_split_eager", graphs=False)
+        log(f"  units phase {time.perf_counter() - t0:.1f} s on {smi}")
+
+    # 14. results
     def total(rows, key, weights=None):
         return sum(r[key] * (weights or {}).get(k, 1) for k, r in rows.items())
 
@@ -2268,6 +2653,21 @@ def main(argv=None) -> int:
             "bound_by": "bytes" if norm_bytes >= norm_ops else "operations",
             "library_ms": total(norm_rows, "library_ms", norm_calls),
         },
+        {
+            "name": "ccl_label", "route": "cuda",
+            "source": "light_unet_tpu_torch/csrc/ccl.cu",
+            "replaces": "light_unet_tpu/ops/ccl.py:56",
+            "launches": (counts["fused_block"]["ccl"] + fused_counts["fused_block"]["ccl"]
+                         + preprocess_ccl),
+            "max_abs_err": float(ccl_err),
+            "ms": float(np.mean([r["ms"] for k, r in ccl_rows.items() if "closed" in k])),
+            "plain_ms": float(np.mean([r["plain_ms"] for k, r in ccl_rows.items()
+                                       if "closed" in k])),
+            "bound_ms": float(np.mean([r["bound_ms"] for k, r in ccl_rows.items()
+                                       if "closed" in k])),
+            "bound_by": "bytes",
+            "library_ms": None,
+        },
     ]
     log(f"[result] launches: residual_block = serving {counts['fused_block']['block']} + fused "
         f"pipeline {fused_counts['fused_block']['block']} + evaluate-phase serving "
@@ -2275,7 +2675,11 @@ def main(argv=None) -> int:
         f"instance_norm_leaky = serving {counts['use_pallas']['norm']} + "
         f"fused pipeline {fused_counts['use_pallas']['norm']} + training-phase validation "
         f"{train_val_norm} + mixed-training validation {mixed_val_norm} + multi-rank "
-        f"validation {multirank_counts['norm']}")
+        f"validation {multirank_counts['norm']}; ccl_label = serving {counts['fused_block']['ccl']} "
+        f"+ fused pipeline {fused_counts['fused_block']['ccl']} + preprocess {preprocess_ccl}")
+    log("[result] ccl_label times are means over the 4 closed body masks (144x144x288); "
+        f"max_abs_err {ccl_err} is the largest label difference from the plain sweeps over "
+        "every mask of phase 13a")
     log("[result] per-kernel times are sums over one 192-patch bf16 forward; "
         f"instance_norm_leaky device time {total(norm_rows, 'device_ms', norm_calls):.4f} ms "
         f"(CUDA events {total(norm_rows, 'ms', norm_calls):.4f} ms)")

@@ -14,8 +14,10 @@ residual block through the fused block kernel; ``tpu.use_pallas`` sends
 every InstanceNorm through the fused norm kernel.  In float32 every launch
 runs without TF32 (``utils/device.py:precision_scope``), as the JAX package
 runs its float32 model at ``precision="highest"``; ``tpu.profile_dir``
-traces ``infer_split``.  On one card each chunk's forward is one CUDA graph
-replay (``ops/sliding_window.py``); ``graphs=False`` runs it eagerly.
+traces ``infer_split``.  On a card a case is two CUDA graph replays and no
+host sync between the upload and the fetch: the window
+(``ops/sliding_window.py``), then the candidate table (``table_unit``);
+``graphs=False`` runs both eagerly.
 
 In a multi-process run (``parallel/mesh.py:mesh_from_config``) every case
 fans out over the world's ranks: patch-sharded, or slab-sharded with
@@ -25,6 +27,7 @@ fans out over the world's ranks: patch-sharded, or slab-sharded with
 
 from __future__ import annotations
 
+import functools
 import json
 import time
 from pathlib import Path
@@ -49,6 +52,7 @@ from light_unet_tpu_torch.ops.sliding_window import (
 from light_unet_tpu_torch.parallel.mesh import mesh_from_config
 from light_unet_tpu_torch.utils import fastio, nifti
 from light_unet_tpu_torch.utils.device import precision_scope, resolve_device
+from light_unet_tpu_torch.utils.graphs import run_unit, runner_for, unit_key
 
 MAX_DEVICE_COMPONENTS = 64  # device candidate-table cap; host fallback beyond
 
@@ -97,13 +101,22 @@ def extract_bboxes(
     return bboxes
 
 
+def table_unit(prob: torch.Tensor, threshold: torch.Tensor, *, max_components: int):
+    """The candidate table of a device map (uint16 levels as int16 bits, or
+    float32): the unit that a card replays as one graph per (padded shape,
+    map dtype, cap), the threshold device data."""
+    if prob.dtype == torch.int16:  # uint16 levels -> probabilities
+        prob = _u16_to_f32(prob) * (1.0 / 65535.0)
+    return component_table_device(prob, threshold, max_components=max_components)
+
+
 class Inferencer:
     """Generate probability maps + candidate bboxes for cases of a split."""
 
     def __init__(self, config_or_path, model_path, workdir: Optional[str] = None,
                  save_prob_maps: bool = True, device="cuda", graphs: bool = True):
-        """``graphs=False`` runs every chunk forward eagerly on a card (the
-        reference path); the CPU has no graphs."""
+        """``graphs=False`` runs the window and the table eagerly on a card
+        (the reference path); the CPU has no graphs."""
         self.save_prob_maps = save_prob_maps
         self.device = resolve_device(device)
         if isinstance(config_or_path, Config):
@@ -127,6 +140,8 @@ class Inferencer:
             print(f"Best metric: {meta['best_metric']:.4f}")
 
         apply_fn = make_fused_apply(self.model) if cfg.tpu.fused_block else self.model
+        # the candidate table: one CUDA graph replay a case on a card
+        self.table_graphs = runner_for(self.device, graphs, "table")
         # fan every case out over the ranks (none: one device)
         self.mesh = mesh_from_config(cfg.tpu, device=self.device)
         self.is_root = self.mesh is None or self.mesh.is_root
@@ -194,11 +209,12 @@ class Inferencer:
         if not self.is_root:
             return True
         prob_dev = on_device(prob_dev)  # the dense map stays on the device
-        if prob_dev.dtype == torch.int16:  # uint16 levels -> probabilities
-            prob_dev = _u16_to_f32(prob_dev) * (1.0 / 65535.0)
+        thr = torch.full((), float(np.float32(threshold)), device=prob_dev.device)
         with precision_scope(self.compute_dtype):
-            table, n_comp = component_table_device(prob_dev, threshold,
-                                                   max_components=MAX_DEVICE_COMPONENTS)
+            table, n_comp = run_unit(
+                self.table_graphs, unit_key("table", max_components=MAX_DEVICE_COMPONENTS),
+                functools.partial(table_unit, max_components=MAX_DEVICE_COMPONENTS),
+                prob_dev, thr)
 
         prob_map = None
         if self.save_prob_maps:

@@ -58,8 +58,9 @@ included).  The augmentation and dropout generator is registered with
 every graph.  An NCCL mesh is captured with its collectives; a gloo mesh
 (host-staged collectives) runs the eager step, as does ``graphs=False``,
 which is the reference path; both are logged.  On the CPU there are no
-graphs: the eager step is the path.  Validation's sliding window runs each
-chunk's forward as a graph replay on one device (``ops/sliding_window.py``).
+graphs: the eager step is the path.  Validation's sliding window is one
+graph replay a case (``ops/sliding_window.py``; patch-sharded over an NCCL
+mesh too), and its threshold sweep another (``ops/val_metrics.py``).
 
 Data parallelism (``parallel/mesh.py``, one process per GPU, as many ranks
 as ``mesh_from_config`` keeps): every rank runs the same sampler streams
@@ -335,6 +336,7 @@ class Trainer:
         self.ledger.charge("params+opt_state", self.opt.nbytes())
         # one CUDA graph per dispatch-unit key (None: the eager step)
         self.graphs = runner_for(self.device, graphs, "train", self.mesh, self.ledger, [self.gen])
+        self.use_graphs = bool(graphs)  # validation's window and sweep follow it
 
         # --- data ----------------------------------------------------------
         data_dir = self._resolve(cfg.data_dir)
@@ -773,7 +775,7 @@ class Trainer:
             from light_unet_tpu_torch.ops.val_metrics import DeviceValidationSweep
 
             self._val_sweep = DeviceValidationSweep(thresholds, ledger=self.ledger,
-                                                    device=self.device)
+                                                    graphs=self.use_graphs, device=self.device)
 
         def escalated_sweep():
             """4x-cap tier for early-epoch noise maps that overflow the default
@@ -784,7 +786,8 @@ class Trainer:
                 vs = self._val_sweep
                 big = DeviceValidationSweep(
                     thresholds, max_components=vs.max_components * 4,
-                    n_gt_cap=vs.n_gt_cap, ledger=self.ledger, device=self.device,
+                    n_gt_cap=vs.n_gt_cap, ledger=self.ledger, graphs=self.use_graphs,
+                    device=self.device,
                 )
                 big._gt = vs._gt
                 self._val_sweep_big = big

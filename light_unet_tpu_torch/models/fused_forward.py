@@ -36,7 +36,7 @@ def make_fused_apply(model: Lightweight3DUNet):
         y = block(model.up3.res_block, pad_concat(model.up3.up(y), x1))
         return torch.sigmoid(model.out_conv(y).float())
 
-    # what a sliding window's graph key reads (``ops/sliding_window.py:chunk_key``)
+    # what a unit's graph key reads (``utils/graphs.py:unit_key``)
     apply_fn.route = "fused_block" if model.use_depthwise_separable else model.route
     apply_fn.compute_dtype = model.compute_dtype
     return apply_fn

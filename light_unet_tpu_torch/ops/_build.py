@@ -41,6 +41,10 @@ CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-ffp-contract
 # C entries of each library: name -> (argtypes, restype is int)
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 ENTRIES = {
+    "ccl": {
+        # fg, parent, labels, D, H, W, stream
+        "ccl_label": [_P] * 2 + [_I] * 3 + [_P],
+    },
     "instance_norm": {
         # x, scale, bias, y, part, sync, dtype, B, S, C, plan[8], eps, slope, stream
         "instance_norm_leaky": [_P] * 6 + [_I, _I, _L, _I, _P, _F, _F, _P],

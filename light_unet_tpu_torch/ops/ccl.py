@@ -1,20 +1,16 @@
 """Connected-component labeling: a device path and a scipy host path (port
 of ``light_unet_tpu/ops/ccl.py``).
 
-Every foreground voxel starts with its ``flat index + 1``; directional
-sweeps of a masked running max (forward and backward along each axis)
-repeat until a full round changes nothing.  Each component then carries the
-max seed of its voxels, exactly as in the JAX package (the fixed point does
-not depend on the sweep schedule).
-
-A masked running max along an axis is a segmented ``cummax``: with ``seg``
-the running count of background voxels, ``seg * big + label`` is ordered
-first by run and then by label, so one ``torch.cummax`` sweeps every run of
-the axis at once.
+``label_propagate`` labels each 6-connected component with the largest flat
+index of its voxels + 1, exactly as the JAX package does: on a card with
+the union-find kernel of ``csrc/ccl.cu`` (a fixed number of launches, no
+host read, so a CUDA graph holds it), on the CPU with the JAX package's
+sweeps (``ops/ccl_kernel.py:sweep_labels``, its plain version).
 
 ``keep_largest_component`` keeps the component with the most voxels (on a
 tie, the smaller label, as ``jnp.argmax`` and ``torch.argmax`` both take the
-first maximum).  ``label_components`` gives scipy's labels and numbering
+first maximum); its counts are an ``index_add_`` (``bincount`` reads its
+size on the host).  ``label_components`` gives scipy's labels and numbering
 from either backend: scipy on the host, or ``label_propagate`` renumbered
 in first-voxel scan order.
 """
@@ -27,45 +23,26 @@ import numpy as np
 import torch
 from scipy import ndimage
 
+from light_unet_tpu_torch.ops.ccl_kernel import connected_labels
 from light_unet_tpu_torch.utils.device import resolve_device
 
 
-def _axis_sweep(labels: torch.Tensor, axis: int, reverse: bool, big: int) -> torch.Tensor:
-    """Running max of positive labels along ``axis``, restarting at zeros."""
-    if reverse:
-        labels = labels.flip(axis)
-    seg = torch.cumsum(labels == 0, dim=axis, dtype=torch.int64)
-    run_max = torch.cummax(seg * big + labels, dim=axis).values - seg * big
-    out = torch.where(labels > 0, run_max, torch.zeros_like(labels))
-    return out.flip(axis) if reverse else out
-
-
 def label_propagate(mask: torch.Tensor) -> torch.Tensor:
-    """Label a [D, H, W] {0,1} mask: int64 labels where each 6-connected
+    """Label a [D, H, W] {0,1} mask: int32 labels where each 6-connected
     component carries the max flat index + 1 of its voxels; background 0."""
-    n = mask.numel()
-    fg = (mask > 0).to(torch.int64)
-    labels = torch.arange(1, n + 1, dtype=torch.int64, device=mask.device).reshape(mask.shape) * fg
-    big = n + 1
-    while True:
-        prev = labels
-        for axis in range(3):
-            labels = _axis_sweep(labels, axis, False, big)
-            labels = _axis_sweep(labels, axis, True, big)
-        if torch.equal(labels, prev):
-            return labels
+    return connected_labels(mask)
 
 
 def keep_largest_component(mask: torch.Tensor) -> torch.Tensor:
     """Largest 6-connected component of a {0,1} mask as float32, all on the
-    device (labels, bincount, argmax); all zero when there is no foreground."""
-    labels = label_propagate(mask)
-    counts = torch.bincount(labels.reshape(-1), minlength=mask.numel() + 1)
-    counts[0] = 0
+    device (labels, counts, argmax); all zero when there is no foreground."""
+    labels = label_propagate(mask).reshape(-1)
+    counts = torch.zeros(mask.numel() + 1, dtype=torch.int32, device=mask.device)
+    counts.index_add_(0, labels, torch.ones_like(labels))
+    counts[:1].zero_()  # the background
     largest = torch.argmax(counts)
-    has_fg = counts[largest] > 0
-    return torch.where(has_fg, (labels == largest).float(),
-                       torch.zeros(mask.shape, dtype=torch.float32, device=mask.device))
+    has_fg = counts.amax() > 0
+    return torch.where(has_fg & (labels == largest), 1.0, 0.0).reshape(mask.shape)
 
 
 def _renumber_scan_order(raw: np.ndarray) -> Tuple[np.ndarray, int]:

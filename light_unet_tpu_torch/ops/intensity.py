@@ -38,15 +38,18 @@ def masked_percentile(flat: torch.Tensor, n_valid: int, q: float) -> torch.Tenso
 def clip_normalize_device(volume: torch.Tensor, valid: torch.Tensor, lo, hi, *,
                           range_min: float, range_max: float) -> torch.Tensor:
     """Clip to [lo, hi] and rescale to [range_min, range_max] in float32;
-    padding (``valid == 0``) is forced to zero."""
-    lo, hi = np.float32(lo), np.float32(hi)
-    if not hi > lo:
-        return torch.full_like(volume, np.float32(range_min)) * valid
-    scale = np.float32(range_max - range_min) / (hi - lo)
-    clipped = torch.clamp(volume, float(lo), float(hi))
-    normalized = (clipped - float(lo)) * float(scale)
+    padding (``valid == 0``) is forced to zero, and ``hi <= lo`` gives
+    ``range_min``.  ``lo`` and ``hi`` are floats or float32 tensors on the
+    volume's device (the graphed units read them as device data)."""
+    dev = volume.device
+    lo, hi = (torch.as_tensor(v, dtype=torch.float32, device=dev) for v in (lo, hi))
+    span = hi - lo
+    # a true float32 quotient (``float / tensor`` would multiply by a reciprocal)
+    scale = torch.full((), float(np.float32(range_max - range_min)), device=dev) / torch.where(
+        span > 0, span, 1.0)
+    normalized = (torch.clamp(volume, lo, hi) - lo) * scale
     normalized = normalized + float(np.float32(range_min))
-    return normalized * valid
+    return torch.where(hi > lo, normalized, float(np.float32(range_min))) * valid
 
 
 def pad_volume(volume: np.ndarray, z_bucket: int) -> np.ndarray:

@@ -38,14 +38,17 @@ The packed mask and the sparse fetch keep the JAX package's rules per
 mode: neither in slab mode.  ``spatial_shard`` without a mesh of more than
 one rank is a no-op.
 
-On one device of a card each chunk's forward is one CUDA graph replay
-(``forward_graphs``, a ``utils/graphs.py:GraphRunner``), keyed by chunk
-shape, compute dtype and route (``fused_block``, ``use_pallas``, plain):
-``choose_chunks`` makes powers of two from 8 to ``patch_batch``, so a
-handful of keys.  The gather, the ordered scatter-add and the rest stay
-eager: the positions follow each volume's true shape.  The sharded windows
-run eagerly.  ``graphs=False`` runs every forward eagerly (the reference
-path); the CPU has no graphs.
+A volume's window is one unit, as it is one program in the JAX package
+(``window_unit``, on one device or patch-sharded, and
+``sliding_window_core_slab_sharded``): the window origins, the real-window
+weights, the true extents, the value range and the post mask are device
+data (``prepare`` uploads them), and nothing inside reads a value on the
+host, so on a card each unit is one CUDA graph replay (``utils/graphs.py``)
+per key: the JAX program's static arguments (chunk, tail, flags, caps)
+with the padded shapes, route and compute dtype.  Over an NCCL mesh the
+graph holds the collectives; a gloo mesh (host-staged collectives) and
+``graphs=False`` (the reference path) run the same unit eagerly, so
+graphed and eager are equal by construction.  The CPU has no graphs.
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ from light_unet_tpu_torch.ops.sparse_fetch import (
     to_numpy,
 )
 from light_unet_tpu_torch.utils.device import resolve_device
-from light_unet_tpu_torch.utils.graphs import runner_for
+from light_unet_tpu_torch.utils.graphs import run_unit, runner_for, unit_key
 
 
 def compute_positions(shape: Sequence[int], patch_size: Sequence[int],
@@ -145,18 +148,19 @@ def _u16_to_f32(t: torch.Tensor) -> torch.Tensor:
 
 def _valid_mask(shape, true_dims, device, zoff: int = 0) -> torch.Tensor:
     """1.0 inside the true extents of a zero-padded volume, built on the
-    device; ``zoff`` is the global z of the first column (a z-slab)."""
+    device; ``true_dims`` are host ints or an int tensor on ``device`` (the
+    graphed units read them as device data); ``zoff`` is the global z of the
+    first column (a z-slab)."""
     offs = (0, 0, zoff)
-    axes = [torch.arange(s, device=device) + o < int(t)
-            for s, t, o in zip(shape, true_dims, offs)]
+    axes = [torch.arange(s, device=device) + o < t for s, t, o in zip(shape, true_dims, offs)]
     return (axes[0][:, None, None] & axes[1][None, :, None] & axes[2][None, None, :]).float()
 
 
-def _dequant_volume(volume: torch.Tensor, true_dims, vlo: float, vhi: float,
-                    zoff: int = 0) -> torch.Tensor:
-    """Invert ``quantize_u16`` in float32 and re-zero the bucket padding."""
-    lo, hi = np.float32(vlo), np.float32(vhi)
-    v = _u16_to_f32(volume) * ((hi - lo) / np.float32(65535.0)) + lo
+def _dequant_volume(volume: torch.Tensor, true_dims, vlo, vhi, zoff: int = 0) -> torch.Tensor:
+    """Invert ``quantize_u16`` in float32 and re-zero the bucket padding;
+    ``vlo`` and ``vhi`` are floats or float32 tensors on the volume's device."""
+    lo, hi = (torch.as_tensor(v, dtype=torch.float32, device=volume.device) for v in (vlo, vhi))
+    v = _u16_to_f32(volume) * ((hi - lo) / 65535.0) + lo
     return v * _valid_mask(volume.shape, true_dims, volume.device, zoff)
 
 
@@ -176,44 +180,50 @@ def quantize_out(out: torch.Tensor) -> torch.Tensor:
     return torch.where(q > 32767, q - 65536, q).to(torch.int16)
 
 
-def _finalize_output(out, quantize: bool, sparse_cap: int, sparse_block: int):
+def _finalize_output(out, quantize: bool, sparse_cap: int, sparse_block: int) -> tuple:
+    """(map,) or, with a sparse cap, (map, count, idx, tiles): see ``as_result``."""
     if quantize:
         out = quantize_out(out)
     if sparse_cap > 0:
-        return SparsePack(out, *pack_blocks(out, sparse_block, sparse_cap),
-                          cap=sparse_cap, block=sparse_block)
-    return out
+        return (out, *pack_blocks(out, sparse_block, sparse_cap))
+    return (out,)
+
+
+def as_result(parts: tuple, sparse_cap: int, sparse_block: int):
+    """A unit's output tuple as a dispatch result: the map, or a ``SparsePack``."""
+    if sparse_cap > 0:
+        return SparsePack(*parts, cap=sparse_cap, block=sparse_block)
+    return parts[0]
+
+
+def _blend(prob: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    return torch.where(count > 0, prob / torch.where(count > 0, count, 1.0), prob)
 
 
 def chunk_forward(apply_fn, chunk: torch.Tensor) -> torch.Tensor:
     """The network on a [n, pd, ph, pw] chunk of patches: float32
-    probabilities of the same shape (the unit a graph captures)."""
+    probabilities of the same shape."""
     return apply_fn(chunk[..., None])[..., 0].float()
 
 
-def chunk_key(apply_fn, chunk: torch.Tensor) -> tuple:
-    """A chunk forward's graph key: the chunk's shape and dtype, the route
-    and compute dtype of ``apply_fn`` (a ``models.unet3d.Lightweight3DUNet`` or
-    ``make_fused_apply``'s function), the float32 convolutions' TF32 flag
-    and the function itself."""
-    return ("chunk", tuple(chunk.shape), chunk.dtype, getattr(apply_fn, "route", None),
-            getattr(apply_fn, "compute_dtype", None), torch.backends.cudnn.allow_tf32,
-            id(apply_fn))
-
-
-def sliding_window_core_parts(volume, positions: np.ndarray, n_real: int, imp_map, apply_fn,
-                              patch_size, chunk: int, tail_chunk: int = 0, forward_graphs=None):
+def sliding_window_core_parts(volume, positions: torch.Tensor, mask: torch.Tensor, imp_map,
+                              apply_fn, patch_size, chunk: int, tail_chunk: int = 0):
     """Raw (prob, count) accumulators: gather -> chunked forward -> scatter-add.
 
-    ``positions`` is the padded [n_pad, 3] host array; its first ``n_real``
-    rows are real windows.  Padding windows run through the forward (so the
-    chunk schedule is the JAX package's) but carry zero weight, so they are
-    not added.  With ``forward_graphs`` (a ``GraphRunner``) each chunk's
-    forward is one graph replay."""
+    ``positions`` [n_pad, 3] (window origins) and ``mask`` [n_pad] (1 real,
+    0 padding) are tensors on the volume's device, as the JAX package's are
+    traced arrays: nothing here reads a value on the host, so a graph
+    captured for one volume serves every volume of its bucket.  Every window
+    runs through the forward in the (chunk, tail) schedule and is added with
+    weight ``imp_map * mask``, padding windows with 0.  The scatter-add is
+    one ``index_add_`` a window into the flattened accumulators, in window
+    order (the JAX package's ``fori_loop`` order); a window's flat indices
+    are distinct, so each voxel takes one add a window and the sums round as
+    the JAX package's ordered slice updates do."""
     n = positions.shape[0]
-    pd, ph, pw = patch_size
     dev = volume.device
-    pos = torch.as_tensor(positions, dtype=torch.int64, device=dev)
+    d, h, w = volume.shape
+    pos = positions.long()
     ar = [torch.arange(s, device=dev) for s in patch_size]
     patches = volume[
         (pos[:, 0, None] + ar[0])[:, :, None, None],
@@ -221,53 +231,73 @@ def sliding_window_core_parts(volume, positions: np.ndarray, n_real: int, imp_ma
         (pos[:, 2, None] + ar[2])[:, None, None, :],
     ]
 
-    fwd = functools.partial(chunk_forward, apply_fn)
     n_main = n - tail_chunk
-    starts = [(i, chunk) for i in range(0, n_main, chunk)]
-    if tail_chunk:
-        starts.append((n_main, tail_chunk))
+    sizes = [chunk] * (n_main // chunk) + ([tail_chunk] if tail_chunk else [])
     preds = torch.empty(patches.shape, dtype=torch.float32, device=dev)
-    for i, size in starts:
-        c = patches[i:i + size]
-        if forward_graphs is None:
-            preds[i:i + size] = fwd(c)
-        else:  # copied out before the next replay overwrites the output
-            preds[i:i + size] = forward_graphs(chunk_key(apply_fn, c), fwd, c)[0]
-    weighted = preds * imp_map[None]
+    start = 0
+    for size in sizes:
+        preds[start:start + size] = chunk_forward(apply_fn, patches[start:start + size])
+        start += size
+    weights = imp_map[None] * mask[:, None, None, None]
+    weighted = preds * weights
 
     prob = torch.zeros(volume.shape, dtype=torch.float32, device=dev)
     count = torch.zeros(volume.shape, dtype=torch.float32, device=dev)
-    for i, (z, y, x) in enumerate(positions[:n_real].tolist()):
-        prob[z:z + pd, y:y + ph, x:x + pw] += weighted[i]
-        count[z:z + pd, y:y + ph, x:x + pw] += imp_map
+    # flat index of a window's voxel: its origin's flat index + its offset
+    offsets = (ar[0][:, None, None] * (h * w) + ar[1][None, :, None] * w
+               + ar[2][None, None, :]).reshape(-1)
+    origins = pos[:, 0] * (h * w) + pos[:, 1] * w + pos[:, 2]
+    prob_flat, count_flat = prob.view(-1), count.view(-1)
+    for i in range(n):
+        idx = origins[i] + offsets
+        prob_flat.index_add_(0, idx, weighted[i].reshape(-1))
+        count_flat.index_add_(0, idx, weights[i].reshape(-1))
     return prob, count
 
 
-def sliding_window_core(volume, positions, n_real, imp_map, apply_fn, patch_size, chunk,
-                        tail_chunk: int = 0, forward_graphs=None):
+def sliding_window_core(volume, positions, mask, imp_map, apply_fn, patch_size, chunk,
+                        tail_chunk: int = 0):
     """Blended probability map of a zero-padded [Dp, Hp, Wp] volume."""
-    prob, count = sliding_window_core_parts(
-        volume, positions, n_real, imp_map, apply_fn, patch_size, chunk, tail_chunk,
-        forward_graphs)
-    return torch.where(count > 0, prob / torch.where(count > 0, count, 1.0), prob)
+    return _blend(*sliding_window_core_parts(volume, positions, mask, imp_map, apply_fn,
+                                             patch_size, chunk, tail_chunk))
 
 
-def sliding_window_core_sharded(volume, positions: np.ndarray, n_real: int, imp_map, apply_fn,
-                                patch_size, chunk: int, mesh: Mesh, tail_chunk: int = 0):
+def window_unit(volume, true_dims, vrange, positions, mask, post_mask=None, *, imp_map,
+                apply_fn, patch_size, chunk: int, tail_chunk: int, use_post_mask: bool,
+                dequant: bool, quantize_out: bool, sparse_cap: int, sparse_block: int,
+                mask_packed: bool, mesh: Optional[Mesh] = None) -> tuple:
+    """One volume (the port of ``_sliding_window_jit``, and with ``mesh`` of
+    the JAX engine's patch-sharded ``_sharded_jit``): dequantize (``vrange``
+    = [vlo, vhi]), window, post mask, quantize and pack.  A tuple of tensors
+    (``_finalize_output``); one graph a key."""
+    if dequant:
+        volume = _dequant_volume(volume, true_dims, vrange[0], vrange[1])
+    if mesh is None:
+        out = sliding_window_core(volume, positions, mask, imp_map, apply_fn, patch_size, chunk,
+                                  tail_chunk)
+    else:
+        out = sliding_window_core_sharded(volume, positions, mask, imp_map, apply_fn,
+                                          patch_size, chunk, mesh, tail_chunk)
+    if use_post_mask:
+        out = _apply_post_mask(out, post_mask, mask_packed)
+    return _finalize_output(out, quantize_out, sparse_cap, sparse_block)
+
+
+def sliding_window_core_sharded(volume, positions, mask, imp_map, apply_fn, patch_size,
+                                chunk: int, mesh: Mesh, tail_chunk: int = 0):
     """The patch axis sharded over ``mesh``: rank r takes rows
-    ``[r * per, (r + 1) * per)`` of the padded [n_pad, 3] window list
-    (``n_pad`` a multiple of the mesh size, the real windows first), runs
-    the shared (chunk, tail) schedule on them into its own accumulators,
-    and ``psum`` blends the partial maps before the divide: every rank
-    ends with the whole map."""
+    ``[r * per, (r + 1) * per)`` of the padded [n_pad, 3] window list and
+    its [n_pad] mask (``n_pad`` a multiple of the mesh size, the real
+    windows first), runs the shared (chunk, tail) schedule on them into its
+    own accumulators, and ``psum`` blends the partial maps before the
+    divide: every rank ends with the whole map."""
     per = positions.shape[0] // mesh.size
-    lo = mesh.rank * per
-    n_mine = min(max(n_real - lo, 0), per)
-    prob, count = sliding_window_core_parts(volume, positions[lo:lo + per], n_mine, imp_map,
+    mine = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    prob, count = sliding_window_core_parts(volume, positions[mine], mask[mine], imp_map,
                                             apply_fn, patch_size, chunk, tail_chunk)
     psum(prob, mesh)
     psum(count, mesh)
-    return torch.where(count > 0, prob / torch.where(count > 0, count, 1.0), prob)
+    return _blend(prob, count)
 
 
 def partition_positions_slab(positions: np.ndarray, n_dev: int, slab: int,
@@ -289,13 +319,15 @@ def partition_positions_slab(positions: np.ndarray, n_dev: int, slab: int,
     return pos, msk, chunk
 
 
-def sliding_window_core_slab_sharded(vol, true_dims, vlo: float, vhi: float, positions: np.ndarray,
-                                     mask: np.ndarray, imp_map, post_mask, apply_fn, patch_size,
-                                     chunk: int, mesh: Mesh, *, slab: int, dequant: bool,
-                                     use_post_mask: bool, quantize: bool):
-    """The volume sharded in z-slabs over ``mesh``: ``vol`` is this rank's
-    ``[D, H, slab]`` slab (``post_mask`` likewise, unpacked), ``positions`` /
-    ``mask`` the ``partition_positions_slab`` buckets of every rank.
+def sliding_window_core_slab_sharded(vol, true_dims, vrange, positions, mask, post_mask=None, *,
+                                     imp_map, apply_fn, patch_size, mesh: Mesh, chunk: int,
+                                     slab: int, use_post_mask: bool, dequant: bool,
+                                     quantize_out: bool) -> tuple:
+    """The volume sharded in z-slabs over ``mesh`` (the port of the JAX
+    engine's ``_slab_jit``): ``vol`` is this rank's ``[D, H, slab]`` slab
+    (``post_mask`` likewise, unpacked), ``positions`` [n_dev, cap, 3] and
+    ``mask`` [n_dev, cap] the ``partition_positions_slab`` buckets of every
+    rank, on the device.
 
     One ``ppermute`` brings the right neighbour's first ``patch_z`` columns
     (the halo), the windows this rank owns run locally into a slab + halo
@@ -303,22 +335,22 @@ def sliding_window_core_slab_sharded(vol, true_dims, vlo: float, vhi: float, pos
     slab to the right neighbour, which adds it onto its head.  The wrap-around
     pairs are harmless: the last rank's windows end inside the volume, so
     its spill is zero, and no valid window reads the halo it receives.
-    Returns this rank's slab of the map."""
+    Returns (this rank's slab of the map,)."""
     n = mesh.size
     halo = int(patch_size[2])
     send_head_left = [(i, (i - 1) % n) for i in range(n)]
     send_spill_right = [(i, (i + 1) % n) for i in range(n)]
     zoff = mesh.rank * slab
     if dequant:
-        vol = _dequant_volume(vol, true_dims, vlo, vhi, zoff)
+        vol = _dequant_volume(vol, true_dims, vrange[0], vrange[1], zoff)
     recv = ppermute(vol[:, :, :halo], mesh, send_head_left)
     vol_ext = torch.cat([vol, recv], dim=2)
 
-    n_mine = int(mask[mesh.rank].sum())
-    pos = positions[mesh.rank].copy()
-    pos[:n_mine, 2] -= zoff  # global -> slab-local z origins
-    pos[n_mine:] = 0  # padding windows: any in-bounds origin (their weight is 0)
-    prob, count = sliding_window_core_parts(vol_ext, pos, n_mine, imp_map, apply_fn,
+    mine = mask[mesh.rank]
+    pos = positions[mesh.rank]
+    # global -> slab-local z origins; padding windows at the origin (weight 0)
+    pos = torch.where(mine[:, None] > 0, torch.cat([pos[:, :2], pos[:, 2:] - zoff], dim=1), 0)
+    prob, count = sliding_window_core_parts(vol_ext, pos, mine, imp_map, apply_fn,
                                             patch_size, chunk)
     spill_p = ppermute(prob[:, :, slab:], mesh, send_spill_right)
     spill_c = ppermute(count[:, :, slab:], mesh, send_spill_right)
@@ -326,10 +358,14 @@ def sliding_window_core_slab_sharded(vol, true_dims, vlo: float, vhi: float, pos
     count = count[:, :, :slab].clone()
     prob[:, :, :halo] += spill_p
     count[:, :, :halo] += spill_c
-    out = torch.where(count > 0, prob / torch.where(count > 0, count, 1.0), prob)
+    out = _blend(prob, count)
     if use_post_mask:
         out = out * post_mask.float()
-    return quantize_out(out) if quantize else out
+    return _finalize_output(out, quantize_out, 0, 8)
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device, non_blocking=True)
 
 
 class SlabShards(NamedTuple):
@@ -407,6 +443,7 @@ class SlidingWindowInferencer:
         host_prefetch: bool = True,
         graphs: bool = True,
         ledger=None,
+        use_gaussian: bool = True,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -415,7 +452,9 @@ class SlidingWindowInferencer:
         self.overlap = float(overlap)
         self.patch_batch = int(patch_batch)
         self.z_bucket = int(z_bucket)
-        self.imp_map = torch.as_tensor(gaussian_importance_map(self.patch_size), device=self.device)
+        imp = (gaussian_importance_map(self.patch_size) if use_gaussian
+               else np.ones(self.patch_size, np.float32))
+        self.imp_map = torch.as_tensor(imp, device=self.device)
         self.quantize_in = str(transfer_dtype) == "uint16"
         self.quantize_out = str(fetch_dtype) == "uint16"
         self.sparse_fetch = bool(sparse_fetch)
@@ -428,10 +467,10 @@ class SlidingWindowInferencer:
         self.n_devices = mesh_size(mesh)
         self.mesh = mesh if self.n_devices > 1 else None
         self.spatial_shard = bool(spatial_shard) and self.mesh is not None
-        # one device: each chunk's forward is a CUDA graph replay (the
-        # sharded windows run eagerly); ``graphs=False`` is the eager reference
-        self.forward_graphs = None if self.mesh is not None else runner_for(
-            self.device, graphs, "window", ledger=ledger)
+        # on a card a volume's window is one CUDA graph replay per unit key
+        # (over an NCCL mesh with its collectives; a gloo mesh and
+        # ``graphs=False``, the eager reference, run the same unit eagerly)
+        self.graphs = runner_for(self.device, graphs, "window", mesh=self.mesh, ledger=ledger)
 
     def prepare(self, volume: np.ndarray, post_mask: Optional[np.ndarray] = None):
         """Host-side prep of one case (patch grid, quantize/pad, mask pack) and
@@ -465,9 +504,8 @@ class SlidingWindowInferencer:
                     f"patch-sharded path",
                     stacklevel=2,
                 )
-        mask = None
         if slab:
-            pos_padded, mask, chunk = partition_positions_slab(
+            pos_padded, weights, chunk = partition_positions_slab(
                 positions, self.n_devices, slab, self.patch_batch)
             tail = 0
         else:
@@ -476,6 +514,8 @@ class SlidingWindowInferencer:
             chunk, tail, per_dev_pad = choose_chunks(per_dev, self.patch_batch)
             pos_padded = np.zeros((per_dev_pad * self.n_devices, 3), dtype=np.int32)
             pos_padded[:n] = positions
+            weights = np.zeros(len(pos_padded), np.float32)
+            weights[:n] = 1.0
 
         region = (slice(0, shape[0]), slice(0, shape[1]), slice(0, shape[2]))
         vlo = vhi = 0.0
@@ -503,41 +543,56 @@ class SlidingWindowInferencer:
                 mask_packed = True
             pm = torch.from_numpy(np.ascontiguousarray(pm[:, :, mine])).to(
                 self.device, non_blocking=True)
+        # what differs per volume goes up as device data, which the unit's
+        # graph reads from its static buffers
+        up = functools.partial(_upload, device=self.device)
         return {
-            "volume": torch.from_numpy(vol_padded).to(self.device, non_blocking=True),
-            "shape": shape, "vlo": vlo, "vhi": vhi, "positions": pos_padded, "n_real": n,
-            "chunks": (chunk, tail), "post_mask": pm, "mask_packed": mask_packed,
-            "slab": slab, "slab_mask": mask,
+            "volume": up(vol_padded), "shape": shape,
+            "dims": up(np.asarray(shape, np.int32)),
+            "vrange": up(np.asarray([vlo, vhi], np.float32)),
+            "positions": up(pos_padded.astype(np.int64)), "weights": up(weights),
+            "chunks": (chunk, tail), "post_mask": pm, "mask_packed": mask_packed, "slab": slab,
         }
+
+    def sparse_cap(self, padded_shape) -> int:
+        """The block-sparse fetch's tile capacity (0: a dense fetch)."""
+        return block_cap(padded_shape, self.sparse_block, self.sparse_frac) if self.sparse_fetch else 0
+
+    def unit(self, prep: dict) -> tuple:
+        """(key, function, inputs) of one ``prepare()``d case's unit: the
+        single-device window, the patch-sharded one or this rank's slab.  The
+        key is the JAX program's static arguments (``_sliding_window_jit``,
+        ``_sharded_jit``, ``_slab_jit``) by name."""
+        chunk, tail = prep["chunks"]
+        use_post_mask = prep["post_mask"] is not None
+        inputs = (prep["volume"], prep["dims"], prep["vrange"], prep["positions"],
+                  prep["weights"]) + ((prep["post_mask"],) if use_post_mask else ())
+        common = dict(imp_map=self.imp_map, apply_fn=self.apply_fn, patch_size=self.patch_size)
+        if prep["slab"]:
+            static = dict(chunk=chunk, slab=prep["slab"], use_post_mask=use_post_mask,
+                          dequant=self.quantize_in, quantize_out=self.quantize_out)
+            fn = functools.partial(sliding_window_core_slab_sharded, mesh=self.mesh, **common,
+                                   **static)
+            return unit_key("slab", self.apply_fn, **static), fn, inputs
+        cap = self.sparse_cap(prep["volume"].shape)
+        static = dict(chunk=chunk, tail_chunk=tail, use_post_mask=use_post_mask,
+                      dequant=self.quantize_in, quantize_out=self.quantize_out, sparse_cap=cap,
+                      sparse_block=self.sparse_block, mask_packed=prep["mask_packed"])
+        fn = functools.partial(window_unit, mesh=self.mesh, **common, **static)
+        return unit_key("window" if self.mesh is None else "sharded", self.apply_fn,
+                        **static), fn, inputs
 
     @torch.no_grad()
     def dispatch(self, prep: dict):
-        """Run the device computation for one ``prepare()``d case; returns
-        (out, orig_shape) where ``out`` is the padded map (or a SparsePack)
-        still on the device, or in slab mode a ``SlabShards``."""
-        vol = prep["volume"]
-        chunk, tail = prep["chunks"]
+        """Run the device computation for one ``prepare()``d case (one graph
+        replay on a card, no host sync); returns (out, orig_shape) where
+        ``out`` is the padded map (or a SparsePack) still on the device, or
+        in slab mode a ``SlabShards``."""
+        key, fn, inputs = self.unit(prep)
+        parts = run_unit(self.graphs, key, fn, *inputs)
         if prep["slab"]:
-            out = sliding_window_core_slab_sharded(
-                vol, prep["shape"], prep["vlo"], prep["vhi"], prep["positions"],
-                prep["slab_mask"], self.imp_map, prep["post_mask"], self.apply_fn,
-                self.patch_size, chunk, self.mesh, slab=prep["slab"], dequant=self.quantize_in,
-                use_post_mask=prep["post_mask"] is not None, quantize=self.quantize_out)
-            return SlabShards(out, self.mesh), prep["shape"]
-        if self.quantize_in:
-            vol = _dequant_volume(vol, prep["shape"], prep["vlo"], prep["vhi"])
-        if self.mesh is not None:
-            out = sliding_window_core_sharded(vol, prep["positions"], prep["n_real"], self.imp_map,
-                                              self.apply_fn, self.patch_size, chunk, self.mesh,
-                                              tail)
-        else:
-            out = sliding_window_core(vol, prep["positions"], prep["n_real"], self.imp_map,
-                                      self.apply_fn, self.patch_size, chunk, tail,
-                                      self.forward_graphs)
-        if prep["post_mask"] is not None:
-            out = _apply_post_mask(out, prep["post_mask"], prep["mask_packed"])
-        cap = block_cap(vol.shape, self.sparse_block, self.sparse_frac) if self.sparse_fetch else 0
-        out = _finalize_output(out, self.quantize_out, cap, self.sparse_block)
+            return SlabShards(parts[0], self.mesh), prep["shape"]
+        out = as_result(parts, self.sparse_cap(prep["volume"].shape), self.sparse_block)
         # on a mesh every rank holds the map; the first one fetches it
         fetches = self.mesh is None or self.mesh.is_root
         if self.host_prefetch and fetches and self.device.type == "cuda":
@@ -559,3 +614,18 @@ class SlidingWindowInferencer:
             host = host.astype(np.float32)
             host *= np.float32(1.0 / 65535.0)
         return host
+
+    def __call__(self, volume: np.ndarray, post_mask: Optional[np.ndarray] = None):
+        """volume [D, H, W] -> probability map [D, H, W] float32 on the host."""
+        return self.fetch(self.dispatch(self.prepare(volume, post_mask)))
+
+
+def sliding_window_inference_3d(volume: np.ndarray, apply_fn: Callable,
+                                patch_size: Sequence[int] = (48, 48, 48), overlap: float = 0.5,
+                                use_gaussian: bool = True, patch_batch: int = 32,
+                                z_bucket: int = 48, device="cuda") -> np.ndarray:
+    """One-shot convenience wrapper (the JAX package's, whose ``params`` the
+    port's ``apply_fn`` holds itself)."""
+    runner = SlidingWindowInferencer(apply_fn, patch_size, overlap, patch_batch, z_bucket,
+                                     use_gaussian=use_gaussian, device=device)
+    return runner(volume)

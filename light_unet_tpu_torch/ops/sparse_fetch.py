@@ -54,12 +54,23 @@ def block_cap(padded_shape: Sequence[int], block: int, frac: float) -> int:
     return min(cap, nb)
 
 
+def sized_nonzero(flags: torch.Tensor, size: int) -> torch.Tensor:
+    """``jnp.nonzero(flags, size=size, fill_value=len(flags))[0]`` of a 1-D
+    bool tensor, without reading the count on the host: the ascending indices
+    of the first ``size`` set flags, then ``len(flags)`` in every slot left.
+    The k-th set flag is where the running count first reaches k + 1."""
+    running = torch.cumsum(flags, 0)
+    want = torch.arange(1, size + 1, dtype=running.dtype, device=flags.device)
+    return torch.searchsorted(running, want)
+
+
 def pack_blocks(vol: torch.Tensor, block: int, cap: int):
     """Pack occupied ``block``^3 tiles of ``vol`` [D, H, W].
 
     Returns ``(count, idx [cap], tiles [cap, block^3])``: ``count`` is a 0-d
     int32 tensor that may exceed ``cap`` (the overflow signal); ``idx`` slots
-    beyond ``count`` hold ``nb`` (out of range) and their tiles are zero."""
+    beyond ``count`` hold ``nb`` (out of range) and their tiles are zero.
+    No host sync: the indices are a sized compaction (``sized_nonzero``)."""
     d, h, w = vol.shape
     nd, nh, nw = block_grid(vol.shape, block)
     pad = (0, nw * block - w, 0, nh * block - h, 0, nd * block - d)
@@ -73,9 +84,7 @@ def pack_blocks(vol: torch.Tensor, block: int, cap: int):
     )
     occupied = (tiles != 0).any(dim=1)
     count = occupied.sum(dtype=torch.int32)
-    idx = torch.full((cap,), nb, dtype=torch.int64, device=vol.device)
-    found = torch.nonzero(occupied).flatten()[:cap]
-    idx[: found.numel()] = found
+    idx = sized_nonzero(occupied, cap)
     tiles_all = torch.cat([tiles, tiles.new_zeros((1, tiles.shape[1]))])
     return count, idx.to(torch.int32), tiles_all[idx]
 

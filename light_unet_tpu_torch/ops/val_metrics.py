@@ -8,9 +8,14 @@
   label equals its own flat index + 1; ranks in flat order come from a
   cumulative sum, no sort) -> component sizes, split coordinate sums,
   first flat index (``scatter_reduce_`` "amin") and the (pred, gt) pair
-  table (one ``bincount``);
+  table (one ``index_add_``), the background in spare rows folded into
+  row 0 (``ops/components.py:spread_background``);
 * only ``[T, C+1, 8]`` + ``[T, C+1, G+1]`` tables cross to the host, where
-  the greedy one-to-one matcher of ``models/metrics.py`` runs on them.
+  the greedy one-to-one matcher of ``models/metrics.py`` runs on them;
+* every threshold runs in one unit with no host sync inside (the CCL
+  kernel, ranks by a cumulative sum, ``index_add_`` counts), as the JAX
+  package's ``sweep_tables_device`` is one program: on a card one CUDA
+  graph replay per (map shape and dtype, caps), the thresholds device data.
 
 Everything is integer (int64 on the device), and the decisions are the JAX
 package's, so the same cases fall back to the exact host path: more than
@@ -23,14 +28,17 @@ high bits, so the tables are the JAX package's tables.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from light_unet_tpu_torch.ops.ccl import label_propagate
+from light_unet_tpu_torch.ops.components import SPREAD, spread_background
 from light_unet_tpu_torch.ops.sliding_window import _u16_to_f32
 from light_unet_tpu_torch.utils.device import resolve_device
+from light_unet_tpu_torch.utils.graphs import run_unit, runner_for, unit_key
 
 # table columns (per pred component row): sum(coord) == 128 * hi + lo per axis
 _COL_SIZE = 0
@@ -54,7 +62,7 @@ def dequantize_prob(prob: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def sweep_tables_device(prob: torch.Tensor, gt_ids: torch.Tensor, thresholds: Sequence[float],
+def sweep_tables_device(prob: torch.Tensor, gt_ids: torch.Tensor, thresholds,
                         *, max_components: int = 4096,
                         n_gt_cap: int = 64) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-threshold pred component tables + pair intersections on ``prob``'s device.
@@ -63,8 +71,12 @@ def sweep_tables_device(prob: torch.Tensor, gt_ids: torch.Tensor, thresholds: Se
     (int64) with C = ``max_components``, G = ``n_gt_cap``.  Row 0 is
     background; rows are in seed (flat-index) order: sort by column
     ``_COL_FIRST`` on the host for scipy numbering.  ``n_components`` is
-    exact, so an overflow (> C) is detectable."""
+    exact, so an overflow (> C) is detectable.  ``thresholds`` is a
+    sequence of floats or a float32 [T] tensor on ``prob``'s device (the
+    graphed sweep reads it as device data).  No host sync."""
     prob = dequantize_prob(prob)
+    if not isinstance(thresholds, torch.Tensor):
+        thresholds = torch.from_numpy(np.asarray(thresholds, np.float32)).to(prob.device)
     dev = prob.device
     shape = prob.shape
     n = prob.numel()
@@ -81,8 +93,8 @@ def sweep_tables_device(prob: torch.Tensor, gt_ids: torch.Tensor, thresholds: Se
     sum_cols = torch.stack([torch.ones(n, dtype=torch.int64, device=dev)]
                            + [part for c in coord_flat for part in (c & 127, c >> 7)], dim=1)
     tables, inters, counts = [], [], []
-    for t in thresholds:
-        mask = prob >= torch.tensor(np.float32(t), device=dev)
+    for i in range(thresholds.shape[0]):
+        mask = prob >= thresholds[i]
         labels = label_propagate(mask).reshape(-1)
         mask_flat = mask.reshape(-1)
         seed_mask = (labels == seeds) & mask_flat
@@ -90,15 +102,25 @@ def sweep_tables_device(prob: torch.Tensor, gt_ids: torch.Tensor, thresholds: Se
         # (they only pollute row 0, and the count says the case overflowed)
         rank = torch.cumsum(seed_mask, 0)
         rank = torch.where(seed_mask & (rank <= max_components), rank, torch.zeros_like(rank))
-        ids = torch.where(mask_flat, rank[torch.clamp(labels - 1, min=0)], torch.zeros_like(rank))
-        sums = torch.zeros((n_rows, _N_COLS - 1), dtype=torch.int64, device=dev)
+        # the background belongs to row 0; it is reduced in spare rows and
+        # folded into row 0 after (integer sums and minima: exact)
+        ids = spread_background(rank[torch.clamp(labels - 1, min=0)], mask_flat, n_rows)
+        sums = torch.zeros((n_rows + SPREAD, _N_COLS - 1), dtype=torch.int64, device=dev)
         sums.index_add_(0, ids, sum_cols)
-        first = torch.full((n_rows,), _INT32_MAX, dtype=torch.int64, device=dev)
+        sums = torch.cat([sums[:1] + sums[n_rows:].sum(0, keepdim=True), sums[1:n_rows]])
+        # the background's first index is _INT32_MAX, the empty row's value
+        first = torch.full((n_rows + SPREAD,), _INT32_MAX, dtype=torch.int64, device=dev)
         first.scatter_reduce_(0, ids, torch.where(mask_flat, flat_idx, _INT32_MAX), "amin")
+        first = first[:n_rows]
         joint = ids * (n_gt_cap + 1) + gt_flat
-        inter = torch.bincount(joint, minlength=n_rows * (n_gt_cap + 1))
+        # bincount would read its length on the host: an index_add_ of ones
+        inter = torch.zeros(((n_rows + SPREAD) * (n_gt_cap + 1),), dtype=torch.int64,
+                            device=dev)
+        inter.index_add_(0, joint, sum_cols[:, 0])
+        inter = inter.reshape(n_rows + SPREAD, n_gt_cap + 1)
+        inter = torch.cat([inter[:1] + inter[n_rows:].sum(0, keepdim=True), inter[1:n_rows]])
         tables.append(torch.cat([sums, first[:, None]], dim=1))
-        inters.append(inter.reshape(n_rows, n_gt_cap + 1))
+        inters.append(inter)
         counts.append(seed_mask.sum())
     return torch.stack(tables), torch.stack(inters), torch.stack(counts)
 
@@ -184,11 +206,16 @@ class DeviceValidationSweep:
     host path (``last_overflow_reason`` says why)."""
 
     def __init__(self, thresholds: Sequence[float], max_components: int = 4096,
-                 n_gt_cap: int = 64, ledger=None, device="cuda"):
+                 n_gt_cap: int = 64, ledger=None, graphs: bool = True, device="cuda"):
         self.thresholds = [float(t) for t in thresholds]
         self.max_components = int(max_components)
         self.n_gt_cap = int(n_gt_cap)
         self.device = resolve_device(device)
+        # the thresholds as device data: the graphed sweep reads them there
+        self._thresholds = torch.from_numpy(np.asarray(self.thresholds, np.float32)).to(self.device)
+        # on a card the whole sweep of a map is one CUDA graph replay per
+        # (map shape and dtype, caps); ``graphs=False`` runs it eagerly
+        self.graphs = runner_for(self.device, graphs, "sweep", ledger=ledger)
         self._gt: Dict[str, Dict] = {}
         # "components" (a bigger cap would fix it), "envelope" /
         # "component_size" (cap-independent), or None after a success
@@ -232,6 +259,14 @@ class DeviceValidationSweep:
                 gt["device_ids"][shape] = cached
         return cached
 
+    def tables(self, prob: torch.Tensor, gt_ids: torch.Tensor):
+        """``sweep_tables_device`` of one map at every threshold: one graph
+        replay on a card."""
+        static = dict(max_components=self.max_components, n_gt_cap=self.n_gt_cap)
+        return run_unit(self.graphs, unit_key("sweep", **static),
+                        functools.partial(sweep_tables_device, **static),
+                        prob, gt_ids, self._thresholds)
+
     def case_metrics(self, case_id: str, prob_dev: torch.Tensor, spacing: Sequence[float],
                      iou_threshold: float = 0.1, distance_threshold_mm: float = 10.0):
         """[{tp, fp, fn, pred_sum, gt_sum, inter_sum} per threshold] or None.
@@ -242,10 +277,8 @@ class DeviceValidationSweep:
         if prob_dev.numel() >= 2**31 or max(prob_dev.shape) >= 4096:
             self.last_overflow_reason = "envelope"
             return None
-        tables, inters, counts = sweep_tables_device(
-            prob_dev, gt_ids, self.thresholds,
-            max_components=self.max_components, n_gt_cap=self.n_gt_cap)
-        counts = counts.cpu().numpy()
+        tables, inters, counts = self.tables(prob_dev, gt_ids)
+        counts = counts.cpu().numpy()  # the fetch: the host waits here
         if (counts > self.max_components).any():
             self.last_overflow_reason = "components"
             return None

@@ -7,7 +7,8 @@ threshold, a console table with the best-recall / best-F1 thresholds,
 ``metrics.csv`` and ``detailed_results.json``.
 
 The sweep runs on ``device`` through one split-scoped
-``DeviceValidationSweep``; a case takes the exact host path only where the
+``DeviceValidationSweep`` (on a card one CUDA graph replay a case per
+padded shape); a case takes the exact host path only where the
 JAX package's sweep returns None too (component count, envelope, component
 size, GT cap, ledger).  An error of the device path is raised, not hidden.
 """
@@ -25,21 +26,29 @@ import torch
 from light_unet_tpu_torch.config import Config
 from light_unet_tpu_torch.datasets.index import find_case_files, read_split_file
 from light_unet_tpu_torch.models.metrics import SMOOTH, calculate_dsc, lesion_metrics_sweep
+from light_unet_tpu_torch.ops.intensity import pad_volume
 from light_unet_tpu_torch.utils import nifti
 from light_unet_tpu_torch.utils.device import resolve_device
 
 CSV_COLUMNS = ("recall", "precision", "f1", "dsc", "fp_per_case", "tp", "fp", "fn", "num_cases")
 
 
-def _device_case_results(prob_map, label, thresholds, spacing, sweep) -> Optional[Dict]:
+def _device_case_results(prob_map, label, thresholds, spacing, sweep,
+                         z_bucket: int = 1) -> Optional[Dict]:
     """The threshold sweep of one case on ``sweep``'s device: the map goes up
-    once as float32 (exact thresholding for maps of any origin).  None when
-    the case must take the host path.  The case's GT leaves the device after
-    scoring, so a split's residency stays one case."""
+    once as float32 (exact thresholding for maps of any origin), its last
+    axis zero-padded to a ``z_bucket`` multiple when every threshold is
+    positive (padding is background then), so that cases of one bucket share
+    the sweep's graph.  None when the case must take the host path.  The
+    case's GT leaves the device after scoring, so a split's residency stays
+    one case."""
     if not sweep.add_case("case", label):
         return None
     try:
-        prob = torch.from_numpy(np.ascontiguousarray(prob_map, dtype=np.float32)).to(sweep.device)
+        prob_map = np.asarray(prob_map, dtype=np.float32)
+        if z_bucket > 1 and min(thresholds) > 0:
+            prob_map = pad_volume(prob_map, z_bucket)
+        prob = torch.from_numpy(np.ascontiguousarray(prob_map)).to(sweep.device)
         res = sweep.case_metrics("case", prob, spacing)
     finally:
         sweep.release_case("case")
@@ -66,7 +75,8 @@ def _device_case_results(prob_map, label, thresholds, spacing, sweep) -> Optiona
 
 
 def evaluate_case(case_id: str, prob_maps_dir, data_dir, thresholds, spacing=(4.0, 4.0, 4.0),
-                  use_device: bool = True, sweep=None, device="cuda") -> Optional[Dict]:
+                  use_device: bool = True, sweep=None, device="cuda",
+                  z_bucket: int = 1) -> Optional[Dict]:
     """Per-threshold metrics of one case, or None when its map or label is missing."""
     prob_path = Path(prob_maps_dir) / f"{case_id}_prob.nii.gz"
     if not prob_path.exists():
@@ -82,7 +92,7 @@ def evaluate_case(case_id: str, prob_maps_dir, data_dir, thresholds, spacing=(4.
             from light_unet_tpu_torch.ops.val_metrics import DeviceValidationSweep
 
             sweep = DeviceValidationSweep(thresholds, device=device)
-        results = _device_case_results(prob_map, label, thresholds, spacing, sweep)
+        results = _device_case_results(prob_map, label, thresholds, spacing, sweep, z_bucket)
         if results is not None:
             return results
 
@@ -126,7 +136,7 @@ def evaluate_split(split_file, prob_maps_dir, data_dir, config: Config,
     all_results = {}
     for cid in case_ids:
         res = evaluate_case(cid, prob_maps_dir, data_dir, thresholds, spacing=spacing,
-                            use_device=use_device, sweep=sweep)
+                            use_device=use_device, sweep=sweep, z_bucket=config.tpu.z_bucket)
         if res is not None:
             all_results[cid] = res
 

@@ -15,7 +15,10 @@ Parity with ``scripts/preprocess_data.py`` of the reference:
   JSON, and a summary JSON (``:271-308, 421-427``).
 
 Decode uses the port's NIfTI codec; ``device`` (default ``"cuda"``) is where
-the normalize and body-mask pass runs.
+the normalize and body-mask pass runs.  ``preprocess_dataset`` owns one
+``utils/graphs.GraphRunner`` for its cases on a card, so that the pass is
+one graph replay a volume per bucketed shape after the first; a case
+preprocessed alone runs it eagerly.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from light_unet_tpu_torch.datasets.index import read_split_file
 from light_unet_tpu_torch.ops.fused import normalize_and_body_mask
 from light_unet_tpu_torch.ops.intensity import clip_and_normalize
 from light_unet_tpu_torch.utils import fastio, nifti
+from light_unet_tpu_torch.utils.device import resolve_device
+from light_unet_tpu_torch.utils.graphs import runner_for
 
 
 def calculate_voxel_thresholds(spacing, volume_cc_list) -> Dict:
@@ -49,7 +54,7 @@ def calculate_voxel_thresholds(spacing, volume_cc_list) -> Dict:
 
 
 def preprocess_case(case_id: str, raw_dir, processed_dir, config: Config,
-                    device="cuda") -> Tuple[bool, Optional[Dict]]:
+                    device="cuda", runner=None) -> Tuple[bool, Optional[Dict]]:
     raw_dir = Path(raw_dir)
     images_dir = raw_dir / "images"
     labels_dir = raw_dir / "labels"
@@ -91,7 +96,7 @@ def preprocess_case(case_id: str, raw_dir, processed_dir, config: Config,
         if data_cfg.body_mask.enabled:
             normalized, body_mask, intensity_meta, body_mask_meta = normalize_and_body_mask(
                 img_data, data_cfg.intensity, data_cfg.body_mask, z_bucket=z_bucket,
-                device=device)
+                device=device, runner=runner)
             nifti.save(
                 nifti.Nifti1Image(body_mask.astype(np.uint8), affine, header),
                 dirs["body_masks"] / f"{case_id}.nii.gz",
@@ -151,8 +156,10 @@ def preprocess_dataset(split_file, raw_dir, processed_dir, config: Config,
     print(f"Processing {len(case_ids)} cases from {split_file}")
     t0 = time.time()
     successful, failed, all_meta = 0, [], []
+    runner = runner_for(resolve_device(device), True, "preprocess")
     for cid in case_ids:
-        ok, meta = preprocess_case(cid, raw_dir, processed_dir, config, device=device)
+        ok, meta = preprocess_case(cid, raw_dir, processed_dir, config, device=device,
+                                   runner=runner)
         if ok:
             successful += 1
             all_meta.append(meta)

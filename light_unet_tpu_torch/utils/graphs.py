@@ -2,10 +2,18 @@
 of the JAX package's ``jax.jit`` programs).
 
 The JAX package compiles every dispatch unit into one device program: the
-training step and its K-step chain (``light_unet_tpu/core/trainer.py:538-585``)
-and the sliding window's forward (``ops/sliding_window.py:172-203``).  The
-port captures the same units with ``torch.cuda.CUDAGraph`` and replays them,
-so that a unit costs the host one replay instead of hundreds of launches.
+training step and its K-step chain (``light_unet_tpu/core/trainer.py:538-585``),
+the whole sliding window of a volume (``ops/sliding_window.py:165-203``, and
+its patch- and slab-sharded programs), the fused per-volume program and the
+preprocess pass (``ops/fused.py``), the candidate table
+(``ops/components.py``) and the validation sweep (``ops/val_metrics.py``).
+The port captures the same units with ``torch.cuda.CUDAGraph`` and replays
+them, so that a unit costs the host one replay instead of hundreds of
+launches, and no unit reads a device value on the host.  A unit's key
+(``unit_key``) is the JAX program's static arguments by name, with the
+shapes and dtypes of its inputs; whatever differs per volume (positions,
+true extents, value ranges, thresholds, masks) is an input, device data in
+the graph's static buffers.
 
 ``GraphRunner`` keeps one graph per key (the counterpart of JAX's compiled
 variants):
@@ -22,7 +30,8 @@ variants):
 The generators given are registered with every graph, so a replay advances
 each one's Philox offset as the eager calls would, and ``set_state`` on such
 a generator moves the stream the graphs read.  The kernels' launch counters
-(``ops/block_kernel.launches``, ``ops/norm_kernel.launches``) count a
+(``ops/block_kernel.launches``, ``ops/norm_kernel.launches``,
+``ops/ccl_kernel.launches``) count a
 captured launch once per replay and not at the capture, which runs nothing.
 Graph memory (the pool's growth at each capture) is charged to an
 ``HbmLedger`` when one is given.  A capture or replay error raises; nothing
@@ -43,7 +52,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 # modules whose ``launches`` counter a replay advances by what its capture recorded
-LAUNCH_COUNTERS = ("light_unet_tpu_torch.ops.block_kernel", "light_unet_tpu_torch.ops.norm_kernel")
+LAUNCH_COUNTERS = ("light_unet_tpu_torch.ops.block_kernel", "light_unet_tpu_torch.ops.norm_kernel",
+                   "light_unet_tpu_torch.ops.ccl_kernel")
 # every live runner, so that ``release`` can destroy their graphs
 _runners: "weakref.WeakSet[GraphRunner]" = weakref.WeakSet()
 
@@ -166,6 +176,28 @@ def release() -> None:
 
 def _as_tuple(out) -> Tuple[torch.Tensor, ...]:
     return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def unit_key(unit: str, apply_fn=None, **static) -> tuple:
+    """A unit's graph key: its name; the route and compute dtype of the
+    network ``apply_fn`` it runs (a ``models.unet3d.Lightweight3DUNet`` or
+    ``make_fused_apply``'s function), the float32 convolutions' TF32 flag and
+    the function itself; then its static arguments as (name, value) pairs.
+    ``run_unit`` appends the shapes and dtypes of the inputs."""
+    return (unit, getattr(apply_fn, "route", None), getattr(apply_fn, "compute_dtype", None),
+            torch.backends.cudnn.allow_tf32, id(apply_fn)) + tuple(sorted(static.items()))
+
+
+def run_unit(runner: Optional["GraphRunner"], key: tuple, fn: Callable,
+             *inputs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``fn(*inputs)`` as a tuple of tensors the caller owns: eagerly without
+    a runner (the CPU, ``graphs=False``, a gloo mesh), else one replay of the
+    key's graph, its outputs copied out of the static buffers that the
+    runner's next replay overwrites."""
+    if runner is None:
+        return _as_tuple(fn(*inputs))
+    key = key + (tuple((tuple(x.shape), x.dtype) for x in inputs),)
+    return tuple(t.clone() for t in runner(key, fn, *inputs))
 
 
 def runner_for(device: torch.device, requested: bool, what: str, mesh=None,

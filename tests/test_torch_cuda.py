@@ -233,13 +233,13 @@ def test_largest_component_on_the_card_equals_the_cpu(gen):
     assert torch.equal(ccl.label_propagate(mask).cpu(), ccl.label_propagate(mask.cpu()))
 
 
-def _fused_pipeline(device, **tpu):
+def _fused_pipeline(device, graphs=True, **tpu):
     cfg = Config.from_dict({"data": {"patch_size": [16, 16, 16]},
                             "model": {"encoder_channels": [4, 8, 16, 32]},
                             "tpu": dict({"z_bucket": 16}, **tpu)})
     model = init_weights(build_model(cfg.model, torch.float32, inference=True),
                          torch.Generator().manual_seed(3)).to(device).eval()
-    return FusedVolumePipeline(model, cfg, patch_batch=8, device=device)
+    return FusedVolumePipeline(model, cfg, patch_batch=8, graphs=graphs, device=device)
 
 
 @pytest.mark.parametrize("sparse", [False, True])
@@ -570,20 +570,21 @@ def test_chunk_forward_graph_follows_a_weight_change(gen, route, dtype, bar):
     did change."""
     from functools import partial
 
-    from light_unet_tpu_torch.ops.sliding_window import chunk_forward, chunk_key
+    from light_unet_tpu_torch.ops.sliding_window import chunk_forward
     from light_unet_tpu_torch.utils.graphs import GraphRunner
 
     model, apply_fn = _route_fn(route, dtype)
     runner = GraphRunner("window", "cuda")
     fwd = partial(chunk_forward, apply_fn)
     c1, c2 = (torch.rand((8, 16, 16, 16), generator=gen, device="cuda") for _ in range(2))
+    key = ("chunk", tuple(c1.shape))
     with torch.no_grad():
-        first = runner(chunk_key(apply_fn, c1), fwd, c1)[0].clone()
+        first = runner(key, fwd, c1)[0].clone()
         assert (first - fwd(c1)).abs().max() <= bar
-        before = runner(chunk_key(apply_fn, c2), fwd, c2)[0].clone()
+        before = runner(key, fwd, c2)[0].clone()
         for p in model.parameters():
             p.mul_(1.25)
-        got = runner(chunk_key(apply_fn, c2), fwd, c2)[0].clone()
+        got = runner(key, fwd, c2)[0].clone()
         want = fwd(c2)
     assert runner.replays == 2 and len(runner.graphs) == 1
     err = (got - want).abs().max().item()
@@ -597,7 +598,7 @@ def test_chunk_forward_replays_count_kernel_launches(gen, route):
     counter; the capture adds none."""
     from functools import partial
 
-    from light_unet_tpu_torch.ops.sliding_window import chunk_forward, chunk_key
+    from light_unet_tpu_torch.ops.sliding_window import chunk_forward
     from light_unet_tpu_torch.utils.graphs import GraphRunner
 
     _, apply_fn = _route_fn(route, torch.bfloat16)
@@ -611,10 +612,10 @@ def test_chunk_forward_replays_count_kernel_launches(gen, route):
         assert per_forward == (8 if route == "fused_block" else 23)
         runner = GraphRunner("window", "cuda")
         n = mod.launches
-        runner(chunk_key(apply_fn, c), fwd, c)  # warm-up + capture
+        runner(("chunk",), fwd, c)  # warm-up + capture
         assert mod.launches == n + per_forward
         for i in range(3):
-            runner(chunk_key(apply_fn, c), fwd, c)
+            runner(("chunk",), fwd, c)
             assert mod.launches == n + (i + 2) * per_forward
 
 
@@ -630,7 +631,148 @@ def test_graphed_window_equals_the_eager_window(gen, dtype):
     for graphs in (True, False):
         sw = SlidingWindowInferencer(apply_fn, (16, 16, 16), patch_batch=16, z_bucket=16,
                                      graphs=graphs, device="cuda")
-        assert (sw.forward_graphs is not None) == graphs
+        assert (sw.graphs is not None) == graphs
         maps.append(sw.fetch(sw.dispatch(sw.prepare(vol))))
         maps.append(sw.fetch(sw.dispatch(sw.prepare(vol))))
     assert all(np.array_equal(maps[0], m) for m in maps[1:])
+
+
+# ------------------------------------------------- the CCL kernel and the units
+
+
+def _adversarial(shape=(20, 48, 40)):
+    # tests/ is on the path under pytest (no package): a card machine may
+    # have a ``tests`` package of its own
+    from torch_ccl_masks import adversarial_masks, serpentine
+
+    masks = {k: torch.from_numpy(v) for k, v in adversarial_masks().items()}
+    masks["serpentine_big"] = torch.from_numpy(serpentine(*shape))
+    return masks
+
+
+def test_ccl_kernel_equals_the_plain_sweeps(gen):
+    """Every adversarial mask (a serpentine of dozens of rounds, one blob,
+    one-voxel components, empty, full) and random masks of three densities:
+    the kernel's int32 labels equal the plain version's; one launch a call."""
+    from light_unet_tpu_torch.ops import ccl_kernel
+
+    masks = _adversarial()
+    for p in (0.2, 0.45, 0.7):
+        masks[f"random_{p}"] = (torch.rand((33, 35, 37), generator=gen, device="cuda")
+                                < p).to(torch.uint8).cpu()
+    for name, m in masks.items():
+        n = ccl_kernel.launches
+        got = ccl_kernel.connected_labels(m.cuda())
+        assert ccl_kernel.launches == n + 1 and got.dtype == torch.int32
+        assert torch.equal(got.cpu(), ccl_kernel.sweep_labels(m)), name
+
+
+def test_ccl_kernel_replays_in_a_graph(gen):
+    from light_unet_tpu_torch.ops import ccl_kernel
+    from light_unet_tpu_torch.utils.graphs import GraphRunner
+
+    runner = GraphRunner("ccl", "cuda")
+    from torch_ccl_masks import serpentine
+
+    masks = [torch.from_numpy(serpentine(4, 48, 16))] * 2
+    masks += [(torch.rand((4, 48, 16), generator=gen, device="cuda") < p).to(torch.uint8).cpu()
+              for p in (0.3, 0.6)]
+    n = ccl_kernel.launches
+    for m in masks:
+        got = runner(("ccl",), ccl_kernel.connected_labels, m.cuda())[0]
+        assert torch.equal(got.cpu(), ccl_kernel.sweep_labels(m))
+    assert runner.replays == 3 and ccl_kernel.launches == n + 4
+
+
+def _units_eager_and_graphed(make, run):
+    """``run(engine)`` twice per engine, graphed then eager: the outputs."""
+    out = {}
+    for graphs in (True, False):
+        engine = make(graphs)
+        out[graphs] = [run(engine) for _ in range(2)]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["fused_block", "use_pallas", "plain"])
+def test_window_unit_graphed_equals_eager_with_no_host_sync(gen, route, dtype):
+    """Every flag on (uint16 in and out, sparse fetch, a packed body mask):
+    two volumes of one bucket, graphed and eager, bit-identical, and the
+    graphed dispatch makes no host sync."""
+    from light_unet_tpu_torch.ops.sliding_window import SlidingWindowInferencer, on_device
+
+    _, apply_fn = _route_fn(route, dtype)
+    rng = np.random.default_rng(5)
+    vols = [rng.random(s, dtype=np.float32) for s in ((40, 30, 44), (40, 30, 42))]
+    body = [(rng.random(v.shape) > 0.3).astype(np.float32) for v in vols]
+    maps = {}
+    for graphs in (True, False):
+        sw = SlidingWindowInferencer(apply_fn, (16, 16, 16), patch_batch=16, z_bucket=16,
+                                     transfer_dtype="uint16", fetch_dtype="uint16",
+                                     sparse_fetch=True, graphs=graphs, device="cuda")
+        preps = [sw.prepare(v, b) for v, b in zip(vols, body)]
+        sw.dispatch(preps[0])  # the warm-up and capture
+        torch.cuda.synchronize()
+        got = []
+        for prep in preps:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = sw.dispatch(prep)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            got.append((on_device(out[0]).clone(), sw.fetch(out)))
+        maps[graphs] = got
+        assert (sw.graphs is not None) == graphs and (not graphs or sw.graphs.replays == 2)
+    for (d1, h1), (d2, h2) in zip(maps[True], maps[False]):
+        assert torch.equal(d1, d2) and np.array_equal(h1, h2)
+
+
+def test_fused_preprocess_table_and_sweep_units_graphed_equal_eager(gen):
+    """The fused program, the preprocess pass, the candidate table and the
+    validation sweep: graphed and eager bit-identical on two volumes of one
+    bucket; none makes a host sync between the upload and the fetch."""
+    import functools
+
+    from light_unet_tpu_torch.core.inferencer import table_unit
+    from light_unet_tpu_torch.ops import fused
+    from light_unet_tpu_torch.ops.sliding_window import on_device
+    from light_unet_tpu_torch.ops.val_metrics import DeviceValidationSweep
+    from light_unet_tpu_torch.utils.graphs import run_unit, runner_for, unit_key
+
+    def no_sync(fn, *a):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    imgs = [_phantom((40, 36, 44)), _phantom((40, 36, 40))]
+    results = {}
+    for graphs in (True, False):
+        pipe = _fused_pipeline("cuda", transfer_dtype="uint16", fetch_dtype="uint16",
+                               sparse_fetch=True, graphs=graphs)
+        preps = [pipe.prepare(i) for i in imgs]
+        pipe.dispatch(preps[0])
+        maps = [on_device(no_sync(pipe.dispatch, p)[0]).clone() for p in preps]
+        cfg = pipe.cfg
+        pp = [fused.prepare_preprocess(i, cfg.data.intensity, 16, "cuda") for i in imgs]
+        pre_runner = runner_for(torch.device("cuda"), graphs, "preprocess")
+        fused.dispatch_preprocess(pp[0], cfg.data.intensity, cfg.data.body_mask, pre_runner)
+        pre = [no_sync(fused.dispatch_preprocess, p, cfg.data.intensity, cfg.data.body_mask,
+                       pre_runner) for p in pp]
+        runner = runner_for(torch.device("cuda"), graphs, "table")
+        fn = functools.partial(table_unit, max_components=64)
+        thr = torch.full((), 0.3, device="cuda")
+        key = unit_key("table", max_components=64)
+        run_unit(runner, key, fn, maps[0], thr)
+        tables = [no_sync(run_unit, runner, key, fn, m, thr) for m in maps]
+        vs = DeviceValidationSweep([0.1, 0.3, 0.5], graphs=graphs, device="cuda")
+        gt = (maps[0] > 20000).to(torch.uint8)
+        vs.tables(maps[0], gt)
+        sweeps = [no_sync(vs.tables, m, gt) for m in maps]
+        results[graphs] = [maps, pre, tables, sweeps]
+    for a, b in zip(results[True], results[False]):
+        for x, y in zip(a, b):
+            x, y = (x if isinstance(x, tuple) else (x,)), (y if isinstance(y, tuple) else (y,))
+            assert all(torch.equal(u, v) for u, v in zip(x, y))

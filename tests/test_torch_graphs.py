@@ -24,7 +24,7 @@ from light_unet_tpu_torch.core.trainer import Trainer
 from light_unet_tpu_torch.models.fused_forward import make_fused_apply
 from light_unet_tpu_torch.models.unet3d import build_model, init_weights
 from light_unet_tpu_torch.ops import block_kernel, norm_kernel
-from light_unet_tpu_torch.ops.sliding_window import chunk_forward, chunk_key
+from light_unet_tpu_torch.ops.sliding_window import chunk_forward
 from light_unet_tpu_torch.utils import graphs
 from light_unet_tpu_torch.utils.device import precision_scope
 from tests.synthetic import make_phantom, write_split_files
@@ -181,7 +181,7 @@ def test_chunk_forward_makes_no_host_sync(route):
         out = chunk_forward(apply_fn, chunk)
     assert rec.found == []
     assert out.shape == chunk.shape and out.dtype == torch.float32
-    assert chunk_key(apply_fn, chunk)[3] == route
+    assert graphs.unit_key("window", apply_fn)[1] == route
 
 
 def _baked(tr):
@@ -298,7 +298,7 @@ def test_cpu_trainer_runs_the_eager_step(tree):
     for flag in (True, False):
         tr = Trainer(Config.from_dict(_cfg(tree, "standard")),
                      workdir=str(tree / f"cpu_{flag}"), device="cpu", graphs=flag)
-        assert tr.graphs is None and tr.sw.forward_graphs is None
+        assert tr.graphs is None and tr.sw.graphs is None
         tr.model.train()
         tr._set_lr(tr.scheduler.current_lr())
         unit = next(iter(tr._dispatch_units(tr.train_loader)))

@@ -13,14 +13,18 @@ from pathlib import Path
 
 import pytest
 
-from light_unet_tpu_torch.ops import _build, block_kernel, norm_kernel
+from light_unet_tpu_torch.ops import _build, block_kernel, ccl_kernel, norm_kernel
 
 CSRC = Path(_build.CSRC)
 SOURCES = sorted(CSRC.glob("*.cu"))
 WRAPPERS = {
+    "ccl": (ccl_kernel, "connected_labels", "ccl_label"),
     "instance_norm": (norm_kernel, "fused_instance_norm_leaky_relu", "instance_norm_leaky"),
     "residual_block": (block_kernel, "fused_residual_block", "residual_block"),
 }
+# what each source replaces: a Pallas TPU kernel, or (the CCL kernel) the
+# lax sweeps of a device loop that has no Pallas kernel
+REPLACES = {"ccl": "Replaces the lax sweeps of light_unet_tpu/ops/ccl.py:label_propagate"}
 
 
 def _c_entries(src: str) -> dict:
@@ -47,9 +51,10 @@ def test_c_entries_match_the_bindings(src):
 
 @pytest.mark.parametrize("src", SOURCES, ids=lambda p: p.name)
 def test_source_notes(src):
-    """Each source names the TPU kernel it replaces and what bounds it."""
+    """Each source names the TPU kernel (or the JAX device loop) it replaces
+    and what bounds it."""
     text = src.read_text()
-    assert "Replaces the Pallas TPU kernel light_unet_tpu/ops/" in text
+    assert REPLACES.get(src.stem, "Replaces the Pallas TPU kernel light_unet_tpu/ops/") in text
     assert "Bound on the card" in text
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 

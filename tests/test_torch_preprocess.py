@@ -296,6 +296,42 @@ def test_run_preprocess_matches_jax(tmp_path, body_mask):
         run_preprocess(cfg, raw, tmp_path / "port", splits, split="test", device="cpu")
 
 
+def test_preprocess_dataset_runs_every_case_through_one_runner(tmp_path, monkeypatch):
+    """``preprocess_dataset`` asks for one graph runner for its run and every
+    case's pass goes through it, under one key for one bucketed shape (a
+    stand-in runner here, which runs the unit eagerly: the CPU has no
+    graphs); the processed tree equals a run without a runner."""
+    from light_unet_tpu_torch.pipeline import preprocess as prep_mod
+
+    raw = tmp_path / "raw"
+    build_raw_dataset(raw, ["0001", "0002"], shape=SHAPE, seed=3)
+    split = tmp_path / "val_list.txt"
+    split.write_text("0001\n0002\n")
+    cfg = Config.load(REPO_CONFIG)
+    cfg.tpu.z_bucket = 16
+    made, keys = [], []
+
+    def runner_for(device, requested, what, **kwargs):
+        made.append((device.type, requested, what))
+
+        def runner(key, fn, *inputs):
+            keys.append(key)
+            return fn(*inputs)
+        return runner
+
+    monkeypatch.setattr(prep_mod, "runner_for", runner_for)
+    prep_mod.preprocess_dataset(split, raw, tmp_path / "runner", cfg, device="cpu")
+    monkeypatch.undo()
+    prep_mod.preprocess_dataset(split, raw, tmp_path / "eager", cfg, device="cpu")
+    assert made == [("cpu", True, "preprocess")]
+    assert len(keys) == 2 and keys[0] == keys[1] and keys[0][0] == "preprocess"
+    for sub in ("images/0001_0000.nii.gz", "images/0002_0000.nii.gz", "body_masks/0001.nii.gz",
+                "body_masks/0002.nii.gz"):
+        got = nifti.load(tmp_path / "runner" / sub).get_fdata(np.float32)
+        want = nifti.load(tmp_path / "eager" / sub).get_fdata(np.float32)
+        np.testing.assert_array_equal(got, want)
+
+
 def test_cli_split_then_preprocess(tmp_path):
     """``--mode split`` then ``--mode preprocess --device cpu`` make the JAX
     CLI's artefact tree."""

@@ -91,8 +91,9 @@ def test_sliding_window_core_matches_jax(rng):
         params, jnp.asarray(pvol), jnp.asarray(pos), jnp.asarray(mask), jnp.asarray(imp),
         fwd, PATCH, chunk, tail_chunk=tail))
     with torch.no_grad():
-        got = sw.sliding_window_core(torch.from_numpy(pvol), pos, n, torch.from_numpy(imp),
-                                     model, PATCH, chunk, tail).numpy()
+        got = sw.sliding_window_core(torch.from_numpy(pvol), torch.from_numpy(pos),
+                                     torch.from_numpy(mask), torch.from_numpy(imp), model, PATCH,
+                                     chunk, tail).numpy()
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 1e-5
 

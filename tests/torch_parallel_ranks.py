@@ -91,9 +91,10 @@ def parallel_job(rank: int, n: int, init: str, tmp: Path, out: dict) -> None:
     model = _window_model(tmp)
     imp = torch.from_numpy(inp["imp"])
     with torch.no_grad():
+        weights = (torch.arange(len(inp["pos"])) < int(inp["n_real"])).float()
         out["core"] = sw.sliding_window_core_sharded(
-            torch.from_numpy(inp["pvol"]), inp["pos"], int(inp["n_real"]), imp, model, PATCH,
-            int(inp["chunk"]), mesh, int(inp["tail"])).numpy()
+            torch.from_numpy(inp["pvol"]), torch.from_numpy(inp["pos"]), weights, imp, model,
+            PATCH, int(inp["chunk"]), mesh, int(inp["tail"])).numpy()
 
     # whole engines: slab-sharded (float32 and uint16 transfer), patch-sharded
     vol, body = inp["vol"], inp["body"]
