@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``light_unet_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the full check (one card, about 6-8 minutes)
+    python3 chip_smoke.py            # the full check (one card, about 7-10 minutes)
     python3 chip_smoke.py --quick    # build + kernel checks at a small batch only
     python3 chip_smoke.py --profile  # also trace fused_block serving, the fused pipeline, 20 training steps
 
@@ -149,19 +149,35 @@ Phases:
    under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), host
    ms to dispatch a volume and device ms, warm-up and capture seconds and
    pool a key; (f) serving graphed and eager, one warmed ``Inferencer``
-   each, in alternating passes (vol/s, maps equal), and one eager serving
+   each, in alternating passes g e e g (vol/s, maps equal), and one eager serving
    case split serially;
-14. one JSON line of per-kernel numbers (launches summed over the runs under
+14. a cohort of four z buckets: 4 raw phantoms of 144x144x240, 144x144x272,
+   160x160x312 and 144x144x360 (z_bucket 48 pads them to z 240, 288, 336
+   and 384) preprocessed on the card (one preprocess key a bucket), then per
+   route (``fused_block`` bf16, ``use_pallas`` bf16, plain float32 with TF32
+   off) one ``Inferencer`` and one ``FusedVolumePipeline``: (a) graphed,
+   the volumes served in the orders A B C D, D C B A and B D A C, every map,
+   candidate table and bbox JSON of the later passes bit-identical to the
+   first's (the keys of a runner share its memory pool); (b) eagerly,
+   bit-identical to graphed; (c) the bf16 routes within 5e-2 of the plain
+   float32 maps, every map exactly 0 outside the body mask; (d) per key the
+   pool's growth, warm-up and capture seconds, reserved and peak memory
+   after it, the ``HbmLedger`` summary, and what releasing a route gives
+   back; then (e) ``DeviceValidationSweep`` over the served maps of the four
+   buckets (one graphed key a bucket), graphed, eager and at 4x the cap,
+   counts equal to the host path and the tables graphed = eager;
+15. one JSON line of per-kernel numbers (launches summed over the runs under
    the kernel's gate: serving, fused pipeline, the training phases'
-   validation, the evaluate phase's serving and the multi-rank phase, each
-   logged, and the CCL kernel's in preprocess, serving and the fused
-   pipeline; a graph replay counts every launch it holds), the
-   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+   validation, the evaluate phase's serving, the multi-rank phase and the
+   bucket phase, each logged, and the CCL kernel's in preprocess, serving,
+   the fused pipeline and the bucket phase; a graph replay counts every
+   launch it holds), the ``nvidia-smi`` line, and last ``{"ok": true,
+   "device": {...}}``.
 
 On one card every dispatch unit runs as a CUDA graph replay, the port's
 default: the training units (phases 8, 10, 11's one-process references)
 and per volume the window, the fused program, the preprocess pass, the
-candidate table and the validation sweep (phases 5-10); phase 11a also
+candidate table and the validation sweep (phases 5-10 and 14); phase 11a also
 replays the patch-sharded window over its one-rank NCCL group.
 
 Any failure raises and exits non-zero.  Float32 comparisons run with TF32 off.
@@ -498,9 +514,9 @@ def block_phase(model, batch: int, bar: float, gen, timed: bool):
     return rows, max_err
 
 
-def write_raw_cases(raw_dir: Path, seed: int, ids=None) -> list:
-    """Raw whole-body PET phantoms at 4 mm with lesion labels, seeded (ids
-    0001-0004 unless given):
+def write_raw_cases(raw_dir: Path, seed: int, ids=None, shape=SERVING_SHAPE) -> list:
+    """Raw whole-body PET phantoms of ``shape`` at 4 mm with lesion labels,
+    seeded (ids 0001-0004 unless given):
     SUV-like intensities (air near 0, a textured body ellipsoid around
     1-2.5, cold pockets inside it that the closing fills, a scanner-bed slab
     and specks of air noise that the largest component drops, hot spheres of
@@ -511,7 +527,6 @@ def write_raw_cases(raw_dir: Path, seed: int, ids=None) -> list:
     for sub in ("images", "labels"):
         (raw_dir / sub).mkdir(parents=True, exist_ok=True)
     aff = np.diag([4.0, 4.0, 4.0, 1.0])
-    shape = SERVING_SHAPE
     zz, yy, xx = np.ogrid[: shape[0], : shape[1], : shape[2]]
     body = ((zz - shape[0] / 2) ** 2 / (0.42 * shape[0]) ** 2
             + (yy - shape[1] / 2) ** 2 / (0.36 * shape[1]) ** 2
@@ -803,16 +818,16 @@ def check_against_plain(runs: dict, what: str) -> None:
 
 
 def fused_pipeline(config, state: dict, graphs: bool = True):
-    """``FusedVolumePipeline`` over a bf16 model with ``state``, under
-    ``config``'s gates."""
+    """``FusedVolumePipeline`` over a model with ``state`` in ``config``'s
+    compute dtype, under its gates."""
     import torch
 
     from light_unet_tpu_torch.models.fused_forward import make_fused_apply
     from light_unet_tpu_torch.models.unet3d import build_model
     from light_unet_tpu_torch.ops.fused import FusedVolumePipeline
 
-    model = build_model(config.model, torch.bfloat16, inference=True,
-                        use_pallas=config.tpu.use_pallas)
+    dtype = torch.float32 if config.tpu.compute_dtype == "float32" else torch.bfloat16
+    model = build_model(config.model, dtype, inference=True, use_pallas=config.tpu.use_pallas)
     model.load_state_dict(state, strict=True)
     model = model.cuda().eval()
     apply_fn = make_fused_apply(model) if config.tpu.fused_block else model
@@ -2053,8 +2068,7 @@ def serving_ab(cfg: dict, model_path: Path, data_dir: Path, split: Path, tmp: Pa
     """13f: serving graphed and eager under the same conditions: one
     ``Inferencer`` each, both warmed by a first pass (the graphed one
     captures its keys there), then timed passes in the order graphed,
-    eager, eager, graphed, graphed, eager.  The maps of every pass equal
-    phase 6's."""
+    eager, eager, graphed.  The maps of every pass equal phase 6's."""
     from light_unet_tpu_torch.core.inferencer import Inferencer
 
     infs = {g: Inferencer(cfg, model_path, workdir=str(tmp / f"serve_ab_{g}"), device="cuda",
@@ -2062,7 +2076,7 @@ def serving_ab(cfg: dict, model_path: Path, data_dir: Path, split: Path, tmp: Pa
     warm = {g: serve_with(inf, data_dir, split, tmp / f"serve_ab_{g}")[0]
             for g, inf in infs.items()}
     rates = {True: [], False: []}
-    for g in (True, False, False, True, True, False):
+    for g in (True, False, False, True):
         vps, maps = serve_with(infs[g], data_dir, split, tmp / f"serve_ab_{g}")
         if not all(np.array_equal(maps[c], reference[c]) for c in reference):
             raise AssertionError(f"{'graphed' if g else 'eager'} serving maps differ from phase 6's")
@@ -2073,9 +2087,322 @@ def serving_ab(cfg: dict, model_path: Path, data_dir: Path, split: Path, tmp: Pa
 
     log(f"  [13f] serving, fused_block, {N_CASES} cases a pass, one Inferencer each, warmed "
         f"(first pass: graphed {warm[True]:.3f}, eager {warm[False]:.3f} vol/s); passes "
-        f"g e e g g e: graphed {fmt(rates[True])} (mean {np.mean(rates[True]):.3f}), eager "
+        f"g e e g: graphed {fmt(rates[True])} (mean {np.mean(rates[True]):.3f}), eager "
         f"{fmt(rates[False])} (mean {np.mean(rates[False]):.3f}) vol/s; maps equal phase 6's "
         f"on {smi}")
+
+
+# phase 14: a cohort of mixed z extents (z_bucket 48 pads them to z 240, 288,
+# 336 and 384: 225, 275, 325 and 375 windows), one of another in-plane size
+BUCKET_CASES = {"0021": (144, 144, 240), "0022": (144, 144, 272), "0023": (160, 160, 312),
+                "0024": (144, 144, 360)}
+# the serving orders of phase 14's passes (the first one captures)
+BUCKET_ORDERS = [(0, 1, 2, 3), (3, 2, 1, 0), (1, 3, 0, 2)]
+# (name, gates, compute dtype) of phase 14's routes
+BUCKET_ROUTES = [("fused_block", {"fused_block": True, "use_pallas": False}, "bfloat16"),
+                 ("use_pallas", {"fused_block": False, "use_pallas": True}, "bfloat16"),
+                 ("plain", {"fused_block": False, "use_pallas": False}, "float32")]
+
+
+def gib(n: int) -> str:
+    return f"{n / 2**30:.2f}"
+
+
+def log_captures(records, what: str) -> None:
+    """One line a captured key (``utils/graphs.py:captures``): runner, its
+    first input's shape, warm-up and capture seconds, the pool's growth, and
+    the device's reserved and peak allocated memory after the capture."""
+    for c in records:
+        log(f"    [{what}] {c.runner}#{c.serial} key {c.key[-1][0][0]}: warm-up "
+            f"{c.warmup_s:.2f} s, capture {c.capture_s:.2f} s, pool +{gib(c.pool_bytes)} GiB; "
+            f"reserved {gib(c.reserved)} GiB, peak allocated {gib(c.peak)} GiB")
+
+
+def bucket_serve(inf, data_dir: Path, order: list, split: Path) -> tuple:
+    """One ``infer_split`` pass of ``inf`` over ``order``: ({case: (map,
+    bbox JSON text, candidate table on the host)}, seconds)."""
+    from unittest import mock
+
+    import torch
+
+    from light_unet_tpu_torch.core import inferencer as inferencer_mod
+    from light_unet_tpu_torch.utils import nifti
+
+    split.write_text("\n".join(order) + "\n")
+    tables, pending = {}, list(order)
+    real = inferencer_mod.run_unit
+
+    def record(*args):  # the table unit runs once a case, in the split's order
+        out = real(*args)
+        tables[pending.pop(0)] = [t.cpu() for t in out]
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(inferencer_mod, "run_unit", record):
+        result = inf.infer_split(split, data_dir)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if result["failed"] or result["successful"] != len(order):
+        raise AssertionError(f"serving {order} failed: {result}")
+    out = {cid: (nifti.load(inf.prob_maps_dir / f"{cid}_prob.nii.gz").get_fdata(np.float32),
+                 (inf.bboxes_dir / f"{cid}_bboxes.json").read_text(), tables[cid])
+           for cid in order}
+    return out, seconds
+
+
+def same_serving(a: dict, b: dict) -> bool:
+    """Every map, bbox JSON and candidate table bit-identical."""
+    import torch
+
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[c][0], b[c][0]) and a[c][1] == b[c][1]
+        and all(torch.equal(x, y) for x, y in zip(a[c][2], b[c][2])) for c in a)
+
+
+def bucket_route(name: str, gates: dict, dtype: str, state: dict, model_path: Path,
+                 data_dir: Path, raw_paths: dict, work: Path, smi: str) -> tuple:
+    """14a-d for one route: serving and the fused pipeline over the four
+    buckets, graphed in three orders and eagerly; returns ({case: served
+    map}, {case: fused map}, launches, peak reserved bytes)."""
+    import gc
+
+    import torch
+
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.core.inferencer import Inferencer
+    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, norm_kernel
+    from light_unet_tpu_torch.utils import graphs, nifti
+    from light_unet_tpu_torch.utils.hbm_ledger import HbmLedger
+
+    cfg = json.loads(json.dumps(SERVING))
+    cfg["tpu"].update(gates, compute_dtype=dtype)
+    ids = list(BUCKET_CASES)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start_reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    first = len(graphs.captures)
+    block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
+    ccl_kernel.launches = 0
+    ledger = HbmLedger(device="cuda")
+    t_route = time.perf_counter()
+
+    # (a) one graphed Inferencer, the buckets in three orders
+    inf = Inferencer(cfg, model_path, workdir=str(work / "graphed"), device="cuda")
+    inf.sw.graphs.ledger = inf.table_graphs.ledger = ledger
+    passes, seconds = [], []
+    for k, order in enumerate(BUCKET_ORDERS):
+        out, sec = bucket_serve(inf, data_dir, [ids[i] for i in order], work / f"order{k}.txt")
+        passes.append(out)
+        seconds.append(sec)
+    keys = (len(inf.sw.graphs.graphs), len(inf.table_graphs.graphs))
+    if keys != (4, 4):
+        raise AssertionError(f"{name}: window and table keys {keys}, not one a bucket")
+    reordered = [same_serving(passes[0], p) for p in passes[1:]]
+    # (b) eagerly
+    eager = Inferencer(cfg, model_path, workdir=str(work / "eager"), device="cuda", graphs=False)
+    ref, eager_s = bucket_serve(eager, data_dir, ids, work / "eager.txt")
+    eager_same = same_serving(passes[0], ref)
+    # (c) exactly 0 outside the body mask
+    for cid in ids:
+        body = nifti.load(data_dir / f"body_masks/{cid}.nii.gz").get_fdata(np.float32) > 0.5
+        m = passes[0][cid][0]
+        if m.shape != BUCKET_CASES[cid] or not np.isfinite(m).all() or np.any(m[~body] != 0):
+            raise AssertionError(f"{name}: served map {cid} {m.shape} not 0 outside the body mask")
+    served = {cid: passes[0][cid][0] for cid in ids}
+    log(f"  [14a] serving, {name} {dtype}: passes in orders {BUCKET_ORDERS} took "
+        f"{', '.join(f'{s:.2f}' for s in seconds)} s (the first captures 4 window and 4 table "
+        f"keys); later orders bit-identical to the first (maps, tables, bbox JSON) {reordered}; "
+        f"[14b] eager {eager_s:.2f} s, bit-identical to graphed {eager_same}; maps 0 outside the "
+        f"body mask")
+    del eager, ref
+
+    # the fused pipeline over the raw volumes, graphed in the same three orders, then eager
+    pcfg = Config.from_dict(cfg)
+    pipe = fused_pipeline(pcfg, state)
+    pipe.graphs.ledger = ledger
+    fused_maps, fused_s, preps = [], [], {}
+    for order in BUCKET_ORDERS:
+        paths = [raw_paths[ids[i]] for i in order]
+        sec, maps, preps = fused_pass(pipe, paths)
+        fused_maps.append({p.name.split("_")[0]: m for p, m in zip(paths, maps)})
+        fused_s.append(sec)
+    if len(pipe.graphs.graphs) != 4:
+        raise AssertionError(f"{name}: {len(pipe.graphs.graphs)} fused keys, not 4")
+    check_zero_outside_body(pcfg, fused_maps[0], preps)
+    fused_reordered = [all(np.array_equal(fused_maps[0][c], f[c]) for c in ids)
+                       for f in fused_maps[1:]]
+    pipe_e = fused_pipeline(pcfg, state, graphs=False)
+    _, maps, _ = fused_pass(pipe_e, [raw_paths[c] for c in ids])
+    fused_eager = all(np.array_equal(fused_maps[0][c], m) for c, m in zip(ids, maps))
+    log(f"  [14a] fused pipeline, {name} {dtype}: passes {', '.join(f'{s:.2f}' for s in fused_s)} "
+        f"s; later orders bit-identical {fused_reordered}; [14b] eager bit-identical "
+        f"{fused_eager}; maps 0 outside the card's body mask")
+    if not all(reordered + fused_reordered) or not (eager_same and fused_eager):
+        raise AssertionError(f"{name}: a replay order or the eager path changed a result")
+    launches = dict(block=block_kernel.launches, plain_block=block_kernel.plain_calls,
+                    norm=norm_kernel.launches, ccl=ccl_kernel.launches)
+
+    # (d) what each key cost, and what releasing the route gives back
+    log_captures(graphs.captures[first:], name)
+    peak_reserved = torch.cuda.memory_stats()["reserved_bytes.all.peak"]
+    reserved = torch.cuda.memory_reserved()
+    log(f"  [14d] {name}: {ledger.summary()}; reserved {gib(start_reserved)} GiB at the start, "
+        f"peak reserved {gib(peak_reserved)} GiB, peak allocated "
+        f"{gib(torch.cuda.max_memory_allocated())} GiB; route "
+        f"{time.perf_counter() - t_route:.1f} s; launches {launches} on {smi}")
+    del inf, pipe, pipe_e, preps, passes
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"  [14d] {name} released: reserved {gib(reserved)} -> "
+        f"{gib(torch.cuda.memory_reserved())} GiB")
+    return served, fused_maps[0], launches, peak_reserved
+
+
+def bucket_sweeps(cfg, maps: dict, maps_dir: Path, data_dir: Path, smi: str) -> None:
+    """14e: ``DeviceValidationSweep`` over the served maps of the four
+    buckets with their labels (each map padded to its bucket, as
+    ``run_evaluate`` pads it; one graphed key a bucket): at the trainer's cap
+    (4096) graphed and eager, and at its 4x tier, each taking the same path
+    (device, or the host path on overflow) and, where the device path ran,
+    the host path's counts; the graphed and eager tables bit-identical; and
+    at a cap that holds the random model's speckled maps (up to ~2e5
+    components a threshold), the device path on every bucket with the host
+    path's counts."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    import torch
+
+    from light_unet_tpu_torch.ops.intensity import pad_volume
+    from light_unet_tpu_torch.ops.val_metrics import DeviceValidationSweep
+    from light_unet_tpu_torch.pipeline.evaluate import _device_case_results, evaluate_case
+    from light_unet_tpu_torch.utils import graphs, nifti
+
+    thresholds = sorted(set(cfg.validation.threshold_sensitivity_range)
+                        | {cfg.validation.default_threshold})
+    spacing = tuple(cfg.data.spacing.target)
+    sweeps = {"graphed": DeviceValidationSweep(thresholds, device="cuda"),
+              "eager": DeviceValidationSweep(thresholds, graphs=False, device="cuda"),
+              "graphed 4x cap": DeviceValidationSweep(thresholds, max_components=4 * 4096,
+                                                      device="cuda"),
+              "graphed wide cap": DeviceValidationSweep(thresholds, max_components=1 << 18,
+                                                        device="cuda")}
+    paths, tables_same, components, mismatches = {}, [], {}, []
+    t0 = time.perf_counter()
+    first = len(graphs.captures)
+    # the exact host path of every case (numpy and scipy: ~10 s a speckled
+    # map) runs in spawned processes while the device sweeps run here
+    with ProcessPoolExecutor(max_workers=len(maps), mp_context=get_context("spawn")) as pool:
+        hosts = {cid: pool.submit(evaluate_case, cid, maps_dir, data_dir, thresholds,
+                                  spacing=spacing, use_device=False) for cid in maps}
+        for cid, m in maps.items():
+            label = nifti.load(data_dir / f"labels/{cid}.nii.gz").get_fdata()
+            results = {}
+            for name, sweep in sweeps.items():
+                results[name] = _device_case_results(m, label, thresholds, spacing, sweep,
+                                                     z_bucket=cfg.tpu.z_bucket)
+                paths[cid, name] = "device" if results[name] is not None else \
+                    f"host ({sweep.last_overflow_reason})"
+            padded = torch.from_numpy(np.ascontiguousarray(pad_volume(m, cfg.tpu.z_bucket))).cuda()
+            tabs = []
+            for name in ("graphed", "eager"):
+                sweep = sweeps[name]
+                sweep.add_case(cid, label)
+                tabs.append(sweep.tables(padded, sweep.gt_ids_padded(cid, padded.shape)))
+                sweep.release_case(cid)
+            tables_same.append(all(torch.equal(a, b) for a, b in zip(*tabs)))
+            host = hosts[cid].result()
+            for name, res in results.items():
+                if res is None:
+                    continue
+                if name == "graphed wide cap":
+                    components[cid] = [res[t]["tp"] + res[t]["fp"] for t in thresholds]
+                for t in thresholds:
+                    if any(res[t][k] != host[t][k] for k in ("tp", "fp", "fn")) or not (
+                            abs(res[t]["dsc"] - host[t]["dsc"]) <= 1e-9):
+                        mismatches.append((cid, name, t, res[t], host[t]))
+    keys = {name: len(sweep.graphs.graphs) for name, sweep in sweeps.items() if sweep.graphs}
+    log_captures(graphs.captures[first:], "sweep")
+    log(f"  [14e] validation sweep, {len(thresholds)} thresholds {thresholds}, over the 4 "
+        f"buckets' served maps: graphed keys {keys} ({graph_summary(sweeps['graphed'].graphs)}); "
+        f"graphed and eager tables bit-identical {tables_same}; paths "
+        f"{dict((f'{c} {n}', r) for (c, n), r in paths.items())}; predicted components a "
+        f"threshold (wide cap) {components}; {time.perf_counter() - t0:.1f} s (the host path "
+        f"in {len(maps)} spawned processes) on {smi}")
+    differ = [c for c in maps if paths[c, "graphed"] != paths[c, "eager"]]
+    wide = [c for c in maps if paths[c, "graphed wide cap"] != "device"]
+    if mismatches or differ or wide or not all(tables_same) or set(keys.values()) != {len(maps)}:
+        raise AssertionError(f"sweeps: counts unlike the host path {mismatches[:3]}, graphed and "
+                             f"eager paths differ on {differ}, wide cap fell back on {wide}, "
+                             f"tables {tables_same}, keys {keys}")
+    log("  [14e] every device sweep's counts equal the host path's (DSC within 1e-9)")
+
+
+def buckets_phase(tmp: Path, state: dict, model_path: Path, smi: str) -> dict:
+    """14: four raw phantoms of four z buckets (one of another in-plane
+    size) preprocessed on the card (one preprocess key a bucket), then per
+    route (``fused_block`` bf16, ``use_pallas`` bf16, plain float32 with TF32
+    off) one ``Inferencer`` and one ``FusedVolumePipeline``: graphed in three
+    orders and eagerly, bit-identical; the bf16 routes within 5e-2 of the
+    plain map; the validation sweep over the served maps.  Returns the
+    kernels' launches (preprocess and every route)."""
+    import torch
+
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.ops import ccl_kernel
+    from light_unet_tpu_torch.ops.sliding_window import bucketed_shape
+    from light_unet_tpu_torch.pipeline.preprocess import run_preprocess
+    from light_unet_tpu_torch.pipeline.split import split_dataset
+    from light_unet_tpu_torch.utils import graphs
+
+    t0 = time.perf_counter()
+    raw, splits, data = tmp / "bucket_raw", tmp / "bucket_splits", tmp / "bucket_processed"
+    ids = list(BUCKET_CASES)
+    for i, (cid, shape) in enumerate(BUCKET_CASES.items()):
+        write_raw_cases(raw, seed=20 + i, ids=[cid], shape=shape)
+    split_dataset(raw, splits, 0.0, 1.0, 0.0, seed=42)
+    cfg = Config.from_dict(SERVING)
+    padded = {cid: bucketed_shape(s, cfg.data.patch_size, cfg.tpu.z_bucket)
+              for cid, s in BUCKET_CASES.items()}
+    first = len(graphs.captures)
+    ccl_kernel.launches = 0
+    val = run_preprocess(cfg, raw, data, splits, split="val", device="cuda")["val"]
+    preprocess_ccl = ccl_kernel.launches
+    pre = graphs.captures[first:]
+    if val["successful"] != len(ids) or sorted(c.key[-1][0][0] for c in pre) != sorted(
+            padded.values()) or {c.runner for c in pre} != {"preprocess"}:
+        raise AssertionError(f"preprocess of the buckets: {val}, keys "
+                             f"{[(c.runner, c.key[-1][0][0]) for c in pre]}")
+    log(f"  [14] {len(ids)} raw phantoms {list(BUCKET_CASES.values())} -> padded "
+        f"{list(padded.values())}; run_preprocess on the card {val['seconds']:.1f} s, CCL "
+        f"launches {preprocess_ccl}")
+    log_captures(pre, "preprocess")
+
+    raw_paths = {cid: raw / f"images/{cid}_0000.nii.gz" for cid in ids}
+    served, fused, launches, memory = {}, {}, {}, {}
+    for name, gates, dtype in BUCKET_ROUTES:
+        served[name], fused[name], launches[name], memory[name] = bucket_route(
+            name, gates, dtype, state, model_path, data, raw_paths, tmp / f"buckets_{name}", smi)
+    check_gates(launches, "bucket run")
+    for name in ("fused_block", "use_pallas"):
+        err = max(max(float(np.abs(run[name][c] - run["plain"][c]).max()) for c in ids)
+                  for run in (served, fused))
+        log(f"  [14c] {name} bf16 vs plain float32 over the 4 buckets (serving and fused): max "
+            f"abs prob diff {err:.3e} (bar 5e-2)")
+        if not err <= 5e-2:
+            raise AssertionError(f"{name} bucket maps differ from the plain model by {err}")
+    bucket_sweeps(cfg, served["fused_block"], tmp / "buckets_fused_block/graphed/inference/"
+                  "prob_maps", data, smi)
+    peak = max(memory.values())
+    log(f"  [14] peak reserved over the routes {gib(peak)} GiB of "
+        f"{gib(torch.cuda.get_device_properties(0).total_memory)} GiB; phase 14 "
+        f"{time.perf_counter() - t0:.1f} s on {smi}")
+    return dict(block=launches["fused_block"]["block"], norm=launches["use_pallas"]["norm"],
+                ccl=preprocess_ccl + sum(c["ccl"] for c in launches.values()))
 
 
 def free_port() -> int:
@@ -2618,7 +2945,12 @@ def main(argv=None) -> int:
                        tmp / "serving_split_eager", graphs=False)
         log(f"  units phase {time.perf_counter() - t0:.1f} s on {smi}")
 
-    # 14. results
+        # 14. a cohort of four z buckets through every stage, three routes
+        log(f"[buckets] {len(BUCKET_CASES)} raw phantoms of four z buckets: preprocess, serving "
+            f"and the fused pipeline per route in three orders and eagerly, the validation sweep")
+        bucket_counts = buckets_phase(tmp, state, model_path, smi)
+
+    # 15. results
     def total(rows, key, weights=None):
         return sum(r[key] * (weights or {}).get(k, 1) for k, r in rows.items())
 
@@ -2632,7 +2964,8 @@ def main(argv=None) -> int:
             "source": "light_unet_tpu_torch/csrc/residual_block.cu",
             "replaces": "light_unet_tpu/ops/pallas_block.py:417",
             "launches": (counts["fused_block"]["block"] + fused_counts["fused_block"]["block"]
-                         + eval_counts["block"] + multirank_counts["block"]),
+                         + eval_counts["block"] + multirank_counts["block"]
+                         + bucket_counts["block"]),
             "max_abs_err": block_err,
             "ms": total(block_rows, "ms"), "plain_ms": total(block_rows, "plain_ms"),
             "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in block_rows.values()),
@@ -2644,7 +2977,8 @@ def main(argv=None) -> int:
             "source": "light_unet_tpu_torch/csrc/instance_norm.cu",
             "replaces": "light_unet_tpu/ops/pallas_kernels.py:118",
             "launches": (counts["use_pallas"]["norm"] + fused_counts["use_pallas"]["norm"]
-                         + train_val_norm + mixed_val_norm + multirank_counts["norm"]),
+                         + train_val_norm + mixed_val_norm + multirank_counts["norm"]
+                         + bucket_counts["norm"]),
             "max_abs_err": norm_err[torch.bfloat16],
             "ms": total(norm_rows, "ms", norm_calls),
             "plain_ms": total(norm_rows, "plain_ms", norm_calls),
@@ -2658,7 +2992,7 @@ def main(argv=None) -> int:
             "source": "light_unet_tpu_torch/csrc/ccl.cu",
             "replaces": "light_unet_tpu/ops/ccl.py:56",
             "launches": (counts["fused_block"]["ccl"] + fused_counts["fused_block"]["ccl"]
-                         + preprocess_ccl),
+                         + preprocess_ccl + bucket_counts["ccl"]),
             "max_abs_err": float(ccl_err),
             "ms": float(np.mean([r["ms"] for k, r in ccl_rows.items() if "closed" in k])),
             "plain_ms": float(np.mean([r["plain_ms"] for k, r in ccl_rows.items()
@@ -2671,12 +3005,14 @@ def main(argv=None) -> int:
     ]
     log(f"[result] launches: residual_block = serving {counts['fused_block']['block']} + fused "
         f"pipeline {fused_counts['fused_block']['block']} + evaluate-phase serving "
-        f"{eval_counts['block']} + multi-rank serving {multirank_counts['block']}; "
-        f"instance_norm_leaky = serving {counts['use_pallas']['norm']} + "
+        f"{eval_counts['block']} + multi-rank serving {multirank_counts['block']} + buckets "
+        f"{bucket_counts['block']}; instance_norm_leaky = serving {counts['use_pallas']['norm']} + "
         f"fused pipeline {fused_counts['use_pallas']['norm']} + training-phase validation "
         f"{train_val_norm} + mixed-training validation {mixed_val_norm} + multi-rank "
-        f"validation {multirank_counts['norm']}; ccl_label = serving {counts['fused_block']['ccl']} "
-        f"+ fused pipeline {fused_counts['fused_block']['ccl']} + preprocess {preprocess_ccl}")
+        f"validation {multirank_counts['norm']} + buckets {bucket_counts['norm']}; ccl_label = "
+        f"serving {counts['fused_block']['ccl']} + fused pipeline "
+        f"{fused_counts['fused_block']['ccl']} + preprocess {preprocess_ccl} + buckets "
+        f"{bucket_counts['ccl']}")
     log("[result] ccl_label times are means over the 4 closed body masks (144x144x288); "
         f"max_abs_err {ccl_err} is the largest label difference from the plain sweeps over "
         "every mask of phase 13a")

@@ -1,10 +1,11 @@
 """Typed experiment configuration (PyTorch port).
 
 A copy of ``light_unet_tpu/config.py``, so both packages read the same YAML
-into the same dataclasses.  The only change: ``yaml`` is imported inside
-``Config.load`` / ``Config.save``, because the GPU hosts the port runs on
-are not promised PyYAML (``Config.from_dict`` needs nothing beyond the
-standard library).
+into the same dataclasses.  The only change: ``Config.load`` and
+``Config.save`` read and write the YAML with the port's own
+``utils/yaml_subset.py`` (the subset ``configs/*.yaml`` and
+``yaml.safe_dump`` use, resolved as ``yaml.safe_load`` resolves it),
+always, because the GPU hosts the port runs on are not promised PyYAML.
 
 Mirrors the YAML schema defined implicitly by the reference's
 ``configs/unet_fl70.yaml:1-217`` (loaded by the thin, unvalidated
@@ -25,6 +26,8 @@ import dataclasses
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
+
+from light_unet_tpu_torch.utils import yaml_subset
 
 
 class ConfigError(ValueError):
@@ -521,18 +524,14 @@ class Config:
 
     @classmethod
     def load(cls, path: Union[str, Path]) -> "Config":
-        import yaml
-
         with open(path, "r") as f:
-            raw = yaml.safe_load(f) or {}
+            raw = yaml_subset.load(f.read()) or {}
         return cls.from_dict(raw)
 
     def save(self, path: Union[str, Path]) -> None:
-        import yaml
-
         Path(path).parent.mkdir(parents=True, exist_ok=True)
         with open(path, "w") as f:
-            yaml.safe_dump(self.to_dict(), f, default_flow_style=False, sort_keys=True)
+            f.write(yaml_subset.dump(self.to_dict()))
 
 
 # ---------------------------------------------------------------------------

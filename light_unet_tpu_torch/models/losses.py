@@ -67,6 +67,28 @@ def focal_tversky_loss(pred, target, alpha=0.7, beta=0.3, gamma=0.75, smooth=1e-
     return _ftl(tp, fp, fn, alpha, beta, gamma, smooth)
 
 
+def _dice(tp, p_sum, t_sum, smooth=1e-6):
+    """1 - soft Dice from the batch's tp, sum(pred) and sum(target)."""
+    return 1.0 - (2.0 * tp + smooth) / (p_sum + t_sum + smooth)
+
+
+def bce_loss(pred, target):
+    """Binary cross-entropy on probabilities (torch ``nn.BCELoss`` mean)."""
+    return _batch_sums(pred, target, True)[5] / pred.numel()
+
+
+def combined_loss(pred, target, ftl_weight=0.8, bce_weight=0.2, alpha=0.7, beta=0.3, gamma=0.75):
+    """``ftl_weight`` * Focal Tversky + ``bce_weight`` * BCE."""
+    tp, fp, fn, _, _, bce = _batch_sums(pred, target, True).unbind()
+    return ftl_weight * _ftl(tp, fp, fn, alpha, beta, gamma) + bce_weight * (bce / pred.numel())
+
+
+def dice_loss(pred, target, smooth=1e-6):
+    """1 - soft Dice, global flatten over the batch."""
+    tp, _, _, p_sum, t_sum = _batch_sums(pred, target, False).unbind()
+    return _dice(tp, p_sum, t_sum, smooth)
+
+
 def masked_loss(pred, target, valid_mask, *, name, alpha, beta, gamma,
                 use_combined, ftl_weight, bce_weight):
     """The configured loss restricted to ``valid_mask``: equals the plain
@@ -167,6 +189,6 @@ def get_loss_function(loss_cfg, mesh=None) -> Callable:
             return w["focal_tversky"] * ftl + w["bce"] * (bce[0] / n)
         if loss_cfg.name == "FocalTverskyLoss":
             return ftl
-        return 1.0 - (2.0 * tp + 1e-6) / (p_sum + t_sum + 1e-6)
+        return _dice(tp, p_sum, t_sum)
 
     return _fn

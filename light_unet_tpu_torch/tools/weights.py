@@ -1,5 +1,5 @@
 """Weight layouts: the JAX package's flax tree and reference ``.pth`` files
--> this package's ``state_dict`` (own copy of the mapping in
+-> this package's ``state_dict``, and back (own copy of the mapping in
 ``light_unet_tpu/tools/port_torch.py:68-194``).
 
 * conv weight: flax ``[kd, kh, kw, in/groups, out]`` -> torch
@@ -73,6 +73,47 @@ def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         w = _TRANSFORMS[tag](np.asarray(leaf, dtype=np.float32))
         out[key] = torch.tensor(w)
     return out
+
+
+def _flax_path(key: str, ndim: int) -> Tuple[Tuple[str, ...], str]:
+    """Torch key -> (flax leaf path, the transform tag that ``_torch_key``
+    inverts).  A 5-D ``weight`` is a kernel, a 1-D one a norm's scale."""
+    *mods, leaf = key.split(".")
+    if mods[-2:] in (["shortcut", "0"], ["shortcut", "1"]):
+        mods = mods[:-2] + ["shortcut_conv" if mods[-1] == "0" else "shortcut_norm"]
+    if leaf == "bias":
+        return tuple(mods) + ("bias",), "direct"
+    if leaf != "weight":
+        raise KeyError(f"unrecognized state_dict entry {key}")
+    if ndim == 5:
+        return tuple(mods) + ("kernel",), "convT" if mods[-1] == "up" else "conv"
+    return tuple(mods) + ("scale",), "direct"
+
+
+def _conv_to_flax(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 4, 1, 0)))
+
+
+def _conv_transpose_to_flax(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 4, 0, 1))[::-1, ::-1, ::-1])
+
+
+_TO_FLAX = {"conv": _conv_to_flax, "convT": _conv_transpose_to_flax, "direct": lambda w: w}
+
+
+def to_jax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """This package's ``state_dict`` -> the JAX package's flax parameter
+    tree as nested dicts of float32 numpy arrays under ``"params"`` (the
+    inverse of ``from_jax_params``; no JAX needed)."""
+    tree: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        w = value.detach().to("cpu", torch.float32).numpy()
+        path, tag = _flax_path(key, w.ndim)
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = _TO_FLAX[tag](w)
+    return {"params": tree}
 
 
 def is_torch_checkpoint(path) -> bool:

@@ -34,20 +34,36 @@ a generator moves the stream the graphs read.  The kernels' launch counters
 ``ops/ccl_kernel.launches``) count a
 captured launch once per replay and not at the capture, which runs nothing.
 Graph memory (the pool's growth at each capture) is charged to an
-``HbmLedger`` when one is given.  A capture or replay error raises; nothing
-falls back to the eager unit.
+``HbmLedger`` when one is given, and every capture appends a ``Capture``
+record (runner, key, warm-up and capture seconds, pool growth, reserved and
+peak device memory after it) to ``captures``.  A capture or replay error
+raises; nothing falls back to the eager unit.
 
 A graph bakes every address it reads: the static buffers, and whatever the
 unit reads besides (parameters, optimizer state, a corpus).  Those must keep
 their storage for the life of the runner; updates go in place.
+
+The keys of one runner share its memory pool: a key's capture takes the
+blocks that the earlier keys' captures freed, so the pool of a runner with
+a key per z bucket is about that of its largest key, not their sum
+(``chip_smoke.py`` phase 14: no growth at the second to fourth bucket of
+the window and the fused program).  A replay may therefore overwrite what
+another key keeps in the same blocks, its intermediates or its static
+outputs.  That is safe, and the keys replay in any order, because (1) a
+replay writes every intermediate before it reads it; (2) every replay runs
+on the caller's one stream, so no two replays overlap; (3) a key's static
+outputs are read only before the runner's next replay: ``run_unit`` clones
+them at once.  Runners do not share pools: each has its own, and its own
+capture stream.
 """
 
 from __future__ import annotations
 
 import importlib
+import itertools
 import time
 import weakref
-from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,6 +72,26 @@ LAUNCH_COUNTERS = ("light_unet_tpu_torch.ops.block_kernel", "light_unet_tpu_torc
                    "light_unet_tpu_torch.ops.ccl_kernel")
 # every live runner, so that ``release`` can destroy their graphs
 _runners: "weakref.WeakSet[GraphRunner]" = weakref.WeakSet()
+_serial = itertools.count()
+
+
+class Capture(NamedTuple):
+    """One key's capture: its runner (name and serial number), warm-up and
+    capture seconds, the pool's growth, and the device's reserved and peak
+    allocated bytes just after it."""
+
+    runner: str
+    serial: int
+    key: tuple
+    warmup_s: float
+    capture_s: float
+    pool_bytes: int
+    reserved: int
+    peak: int
+
+
+# every capture of the process, in order (a few records a key)
+captures: List[Capture] = []
 
 
 def _counters() -> Tuple[int, ...]:
@@ -99,6 +135,7 @@ class GraphRunner:
         self.warmup_seconds: Dict[tuple, float] = {}
         self.capture_seconds: Dict[tuple, float] = {}
         self.pool_bytes = 0
+        self.serial = next(_serial)
         _runners.add(self)
 
     def __call__(self, key: tuple, fn: Callable, *inputs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -160,6 +197,9 @@ class GraphRunner:
         self.graphs[key] = Captured(graph, static, outputs, launches)
         self.warmup_seconds[key] = t1 - t0
         self.capture_seconds[key] = time.perf_counter() - t1
+        captures.append(Capture(self.name, self.serial, key, t1 - t0, self.capture_seconds[key],
+                                grown, torch.cuda.memory_reserved(dev),
+                                torch.cuda.max_memory_allocated(dev)))
         return first
 
 

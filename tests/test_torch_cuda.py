@@ -776,3 +776,70 @@ def test_fused_preprocess_table_and_sweep_units_graphed_equal_eager(gen):
         for x, y in zip(a, b):
             x, y = (x if isinstance(x, tuple) else (x,)), (y if isinstance(y, tuple) else (y,))
             assert all(torch.equal(u, v) for u, v in zip(x, y))
+
+
+def test_two_buckets_replayed_in_reverse_order_are_bit_identical(gen, tmp_path, monkeypatch):
+    """One ``Inferencer`` serves two volumes of two z buckets (two keys in
+    its window runner's pool and in its table runner's), then serves them
+    again in the reverse order: every map, candidate table and bbox file is
+    bit-identical to the first pass and to an eager ``Inferencer``'s."""
+    import json
+
+    from light_unet_tpu_torch.core import inferencer as inferencer_mod
+    from light_unet_tpu_torch.utils import nifti
+
+    data = tmp_path / "processed"
+    for sub in ("images", "body_masks"):
+        (data / sub).mkdir(parents=True)
+    cases = {"0001": (24, 24, 40), "0002": (28, 24, 20)}  # padded z 48 and 32
+    aff = np.diag([4.0, 4.0, 4.0, 1.0])
+    for cid, shape in cases.items():
+        vol = _phantom(shape)
+        vol = vol / vol.max()
+        nifti.save(nifti.Nifti1Image(vol.astype(np.float32), aff), data / f"images/{cid}_0000.nii.gz")
+        nifti.save(nifti.Nifti1Image((vol > 0.05).astype(np.uint8), aff),
+                   data / f"body_masks/{cid}.nii.gz")
+    cfg = {"data": {"patch_size": [16, 16, 16]},
+           "tpu": {"compute_dtype": "bfloat16", "fused_block": True, "patch_batch": 8,
+                   "z_bucket": 16, "transfer_dtype": "uint16", "fetch_dtype": "uint16",
+                   "sparse_fetch": True}}
+    model = init_weights(build_model(Config.from_dict(cfg).model, torch.bfloat16, inference=True),
+                         torch.Generator().manual_seed(6))
+    ckpt = tmp_path / "model.pth"
+    torch.save({"model_state_dict": model.state_dict(), "epoch": 0}, ckpt)
+    real = inferencer_mod.run_unit
+
+    def serve(inf, name, order):
+        tables, pending = {}, list(order)
+
+        def record(*a):
+            out = real(*a)
+            tables[pending.pop(0)] = [t.clone() for t in out]
+            return out
+
+        monkeypatch.setattr(inferencer_mod, "run_unit", record)
+        split = tmp_path / f"{name}.txt"
+        split.write_text("\n".join(order) + "\n")
+        result = inf.infer_split(split, data)
+        monkeypatch.setattr(inferencer_mod, "run_unit", real)
+        assert result["successful"] == len(order) and not result["failed"]
+        out = {}
+        for cid in order:
+            out[cid] = (nifti.load(inf.prob_maps_dir / f"{cid}_prob.nii.gz").get_fdata(np.float32),
+                        json.loads((inf.bboxes_dir / f"{cid}_bboxes.json").read_text()),
+                        tables[cid])
+        return out
+
+    graphed = inferencer_mod.Inferencer(cfg, ckpt, workdir=str(tmp_path / "g"), device="cuda")
+    first = serve(graphed, "forward", ["0001", "0002"])
+    again = serve(graphed, "reverse", ["0002", "0001"])
+    assert len(graphed.sw.graphs.graphs) == 2 and len(graphed.table_graphs.graphs) == 2
+    eager = inferencer_mod.Inferencer(cfg, ckpt, workdir=str(tmp_path / "e"), device="cuda",
+                                      graphs=False)
+    reference = serve(eager, "eager", ["0001", "0002"])
+    for other in (again, reference):
+        for cid, shape in cases.items():
+            assert first[cid][0].shape == shape and np.ptp(first[cid][0]) > 0
+            np.testing.assert_array_equal(other[cid][0], first[cid][0])
+            assert other[cid][1] == first[cid][1]
+            assert all(torch.equal(a, b) for a, b in zip(other[cid][2], first[cid][2]))
