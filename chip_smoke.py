@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``light_unet_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the full check (one card, about 7-10 minutes)
+    python3 chip_smoke.py            # the full check (one card, about 8-11 minutes)
     python3 chip_smoke.py --quick    # build + kernel checks at a small batch only
     python3 chip_smoke.py --profile  # also trace fused_block serving, the fused pipeline, 20 training steps
+    python3 chip_smoke.py --cli-rank DIR <CLI flags>  # one rank of phase 15's torchrun job
 
 Phases:
 1. device line: ``nvidia-smi`` name and power limit, torch and CUDA versions;
@@ -166,10 +167,28 @@ Phases:
    back; then (e) ``DeviceValidationSweep`` over the served maps of the four
    buckets (one graphed key a bucket), graphed, eager and at 4x the cap,
    counts equal to the host path and the tables graphed = eager;
-15. one JSON line of per-kernel numbers (launches summed over the runs under
+15. the CLI as a torchrun job: 6 raw phantoms 0031-0036 (seed 15) and
+   ``--mode all`` (phase 8's model in float32 with ``use_pallas``, 1 epoch,
+   the cases split 1 + 2 + 3, global batch 2 x N) run (i) in this process
+   and (ii) as ``python3 -m torch.distributed.run --standalone
+   --nproc_per_node N chip_smoke.py --cli-rank <dir> ...`` with N =
+   ``torch.cuda.device_count()`` and ``tpu.distributed: true``, one shared
+   workdir (each rank calls ``cli.run``, as ``python -m
+   light_unet_tpu_torch.cli`` does, and writes its stage seconds, device,
+   peak memory, kernel launches and the files it wrote); both with cuDNN's
+   deterministic algorithms; the job's split lists and processed files
+   equal to (i)'s byte for byte, with N = 1 its history, best model, maps,
+   bbox JSONs and evaluate counts equal, with N > 1 its train and
+   validation losses within 1e-4 relative (``compare_cli_runs``: over an
+   epoch of AdamW the ranks' sums move the parameters apart, so the model,
+   the maps and the thresholded metrics are logged), every rank on its own
+   card with norm-kernel launches, no rank but 0 writing a file of the
+   artifact tree; logged: s per stage per rank, start-up seconds (launch
+   to process group);
+16. one JSON line of per-kernel numbers (launches summed over the runs under
    the kernel's gate: serving, fused pipeline, the training phases'
-   validation, the evaluate phase's serving, the multi-rank phase and the
-   bucket phase, each logged, and the CCL kernel's in preprocess, serving,
+   validation, the evaluate phase's serving, the multi-rank phase, the
+   bucket phase and the torchrun phase, each logged, and the CCL kernel's in preprocess, serving,
    the fused pipeline and the bucket phase; a graph replay counts every
    launch it holds), the ``nvidia-smi`` line, and last ``{"ok": true,
    "device": {...}}``.
@@ -2742,6 +2761,305 @@ def multirank_phase(tmp: Path, data_dir: Path, case_id: str, model_path: Path, b
                 norm=sum(t["val_norm"] for t in trains))
 
 
+TORCHRUN_IDS = [f"{i:04d}" for i in range(31, 37)]
+CLI_STAGES = ("split", "preprocess", "train", "inference", "evaluate")
+
+
+def instrument_cli(record: dict):
+    """Time every stage of ``cli.run`` into ``record``: ``work_s`` (this
+    process's own work in the stage, device synchronised) and ``stage_s``
+    (from the stage's start until the barrier after it returns: the wait for
+    the other ranks included); ``group_up`` is the wall-clock time at which
+    the process group stood.  Returns a function that undoes it."""
+    import torch
+
+    from light_unet_tpu_torch import cli
+    from light_unet_tpu_torch.parallel import distributed
+
+    run_stage, barrier, init = cli._run_stage, distributed.barrier, distributed.maybe_distributed_init
+    marks = []
+
+    def sync(device):
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def timed_stage(stage, args, *rest):
+        t0 = time.perf_counter()
+        rc = run_stage(stage, args, *rest)
+        sync(args.device)
+        record.setdefault("work_s", {})[stage] = round(time.perf_counter() - t0, 3)
+        return rc
+
+    def timed_barrier():
+        barrier()
+        now = time.perf_counter()
+        record.setdefault("stage_s", []).append(round(now - marks[-1], 3))
+        marks.append(now)
+
+    def timed_init(tpu_cfg, device="cuda", *a, **k):
+        made = init(tpu_cfg, device, *a, **k)
+        record["group_up"] = time.time()
+        record["device"] = str(device)
+        marks.append(time.perf_counter())
+        return made
+
+    cli._run_stage, distributed.barrier = timed_stage, timed_barrier
+    distributed.maybe_distributed_init = timed_init
+
+    def undo():
+        cli._run_stage, distributed.barrier = run_stage, barrier
+        distributed.maybe_distributed_init = init
+    return undo
+
+
+def cli_rank(out_dir: str, argv: list) -> int:
+    """One rank of phase 15's torchrun job: ``cli.run(argv)``, the function
+    ``python -m light_unet_tpu_torch.cli`` runs, with cuDNN's deterministic
+    algorithms, then ``rank_<RANK>.json`` in ``out_dir``: the stage seconds
+    of ``instrument_cli``, the device, its peak memory, the kernels'
+    launches, and every file the rank opened for writing (an audit hook on
+    ``open`` and ``os.rename``, and ``torch.save``, whose writer opens the
+    file in C++)."""
+    import os
+
+    entered = time.time()
+    sys.path.insert(0, str(REPO))
+    import torch
+
+    from light_unet_tpu_torch import cli
+    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, norm_kernel
+
+    written = set()
+
+    def audit(event, args):
+        if event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
+            mode, flags = args[1], args[2]
+            if (isinstance(mode, str) and any(c in mode for c in "wax+")) or (
+                    isinstance(flags, int) and flags > 0
+                    and flags & (os.O_WRONLY | os.O_RDWR | os.O_CREAT)):
+                written.add(os.path.abspath(os.fsdecode(args[0])))
+        elif event == "os.rename":
+            written.add(os.path.abspath(os.fsdecode(args[1])))
+
+    sys.addaudithook(audit)
+    save = torch.save
+
+    def recorded_save(obj, f, *args, **kwargs):
+        if isinstance(f, (str, os.PathLike)):
+            written.add(os.path.abspath(os.fsdecode(f)))
+        return save(obj, f, *args, **kwargs)
+
+    torch.save = recorded_save
+    torch.backends.cudnn.deterministic = True
+    record = {"rank": int(os.environ.get("RANK", 0)), "world": int(os.environ.get("WORLD_SIZE", 1)),
+              "entered": entered}
+    instrument_cli(record)
+    record["rc"] = cli.run(argv)
+    cuda = torch.device(record["device"]).type == "cuda"
+    record.update(
+        device_name=torch.cuda.get_device_name(record["device"]) if cuda else "cpu",
+        peak_gib=torch.cuda.max_memory_allocated(record["device"]) / 2**30 if cuda else 0.0,
+        launches=dict(norm=norm_kernel.launches, block=block_kernel.launches,
+                      plain_block=block_kernel.plain_calls, ccl=ccl_kernel.launches),
+        written=sorted(written))
+    Path(out_dir, f"rank_{record['rank']}.json").write_text(json.dumps(record))
+    return record["rc"]
+
+
+def torchrun_config(n: int) -> dict:
+    """Phase 8's training configuration (full width, ``use_pallas`` on) in
+    float32, 1 epoch, the 6 cases split 1 + 2 + 3 (one training case keeps
+    the epoch at ~185 steps), and a global batch of 2 x ``n`` that ``n``
+    ranks divide."""
+    cfg = train_config(Path("unused"), Path("unused"), tpu={"compute_dtype": "float32"},
+                       training={"epochs": 1, "batch_size": 2 * n},
+                       data={"split_ratio": {"train": 0.17, "val": 0.34, "test": 0.49}})
+    del cfg["data_dir"], cfg["splits_dir"]  # the CLI's flags
+    return cfg
+
+
+def tree_files(root: Path) -> dict:
+    return {str(p.relative_to(root)): p for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def compare_cli_runs(one: Path, job: Path, bars: str) -> dict:
+    """Phase 15's bars: the job's artifacts against the in-process run's.
+    Always: split lists and processed images, labels and body masks equal
+    byte for byte.  ``bars``:
+
+    * ``"exact"`` (one rank): the training history, the best model's
+      tensors, the maps, the bbox JSONs and ``detailed_results.json``'s
+      counts equal;
+    * ``"close"``: history and best model within 1e-5 relative, maps
+      within 1e-4, bbox JSONs and counts equal;
+    * ``"dp"`` (several cards): the epochs' train and validation losses
+      within 1e-4 relative (the bar of phase 11b and of the CPU's
+      data-parallel tests) and the learning rates equal.  Over an epoch of
+      AdamW the sums of several ranks, in another order than one
+      process's, move the parameters apart (phase 11b holds the first 3
+      float32 steps bit for bit), and the thresholded validation metrics
+      of a one-epoch model follow them, so those, the model and the maps
+      are reported, not held.
+
+    Returns the largest differences."""
+    import torch
+
+    from light_unet_tpu_torch.utils import nifti
+
+    for name in ("train", "val", "test"):
+        a = (one / f"splits/{name}_list.txt").read_text()
+        if a != (job / f"splits/{name}_list.txt").read_text():
+            raise AssertionError(f"torchrun job: {name} split differs")
+    a_proc, b_proc = tree_files(one / "processed"), tree_files(job / "processed")
+    if sorted(a_proc) != sorted(b_proc):
+        raise AssertionError(f"torchrun job: processed trees differ: {sorted(a_proc)} vs "
+                             f"{sorted(b_proc)}")
+    for rel, p in a_proc.items():
+        if rel.startswith(("images/", "labels/", "body_masks/")) \
+                and p.read_bytes() != b_proc[rel].read_bytes():
+            raise AssertionError(f"torchrun job: processed {rel} differs")
+
+    def rel_diff(a, b):
+        return max((abs(x - y) / max(abs(x), 1e-12) for x, y in zip(a, b)), default=0.0)
+
+    ha = json.loads((one / "work/logs/training_history.json").read_text())
+    hb = json.loads((job / "work/logs/training_history.json").read_text())
+    if sorted(ha) != sorted(hb) or any(len(ha[k]) != len(hb[k]) for k in ha):
+        raise AssertionError(f"training histories differ in shape: {ha} vs {hb}")
+    hist_rel = max(rel_diff(ha[k], hb[k]) for k in ha)
+    loss_rel = max(rel_diff(ha[k], hb[k]) for k in ("train_loss", "val_loss"))
+    held = {"exact": hist_rel == 0.0, "close": hist_rel <= 1e-5,
+            "dp": loss_rel <= 1e-4 and ha["learning_rate"] == hb["learning_rate"]}[bars]
+    if not held:
+        raise AssertionError(f"training histories differ (largest relative {hist_rel:.3e}, "
+                             f"losses {loss_rel:.3e}; bars {bars}): {ha} vs {hb}")
+    sa = torch.load(one / "work/models/best_model.pth", map_location="cpu")["model_state_dict"]
+    sb = torch.load(job / "work/models/best_model.pth", map_location="cpu")["model_state_dict"]
+    if sorted(sa) != sorted(sb):
+        raise AssertionError("best_model.pth holds other tensors")
+    model_rel = max(float((sa[k].double() - sb[k].double()).abs().max()
+                          / max(float(sa[k].double().abs().max()), 1e-12)) for k in sa)
+    if (bars == "exact" and model_rel != 0.0) or (bars == "close" and model_rel > 1e-5):
+        raise AssertionError(f"best_model.pth tensors differ (largest relative {model_rel:.3e})")
+    a_inf, b_inf = tree_files(one / "work/inference"), tree_files(job / "work/inference")
+    if sorted(a_inf) != sorted(b_inf):
+        raise AssertionError(f"inference trees differ: {sorted(a_inf)} vs {sorted(b_inf)}")
+    map_err = 0.0
+    for rel, p in a_inf.items():
+        if rel.endswith("_prob.nii.gz"):
+            map_err = max(map_err, float(np.abs(nifti.load(p).get_fdata()
+                                                - nifti.load(b_inf[rel]).get_fdata()).max()))
+    if bars != "dp" and map_err > (0.0 if bars == "exact" else 1e-4):
+        raise AssertionError(f"probability maps differ by {map_err:.3e} (bars {bars})")
+    if bars != "dp":
+        for rel, p in a_inf.items():
+            if rel.endswith("_bboxes.json") and p.read_text() != b_inf[rel].read_text():
+                raise AssertionError(f"torchrun job: {rel} differs")
+        da = json.loads((one / "work/inference/detailed_results.json").read_text())["per_case"]
+        db = json.loads((job / "work/inference/detailed_results.json").read_text())["per_case"]
+        counts = lambda d: {c: {t: {k: v[k] for k in ("tp", "fp", "fn")} for t, v in th.items()
+                                if isinstance(v, dict) and "tp" in v} for c, th in d.items()}
+        if counts(da) != counts(db):
+            raise AssertionError("torchrun job: detailed_results.json counts differ")
+    return dict(history_rel=hist_rel, loss_rel=loss_rel, model_rel=model_rel, map_err=map_err)
+
+
+def torchrun_phase(tmp: Path, smi: str) -> int:
+    """15: ``--mode all`` of the port's CLI on the 6 raw phantoms 0031-0036,
+    (i) in this process on cuda:0 and (ii) as a torchrun job of N =
+    ``torch.cuda.device_count()`` ranks (``tpu.distributed: true``, one
+    shared workdir), each run into its own tree, held by
+    ``compare_cli_runs`` and with every rank of the job on its own card and
+    no rank but 0 writing a file of the artifact tree.  Returns the norm
+    kernel's launches in both runs."""
+    import os
+
+    import torch
+
+    from light_unet_tpu_torch import cli
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.ops import norm_kernel
+    from light_unet_tpu_torch.utils import graphs
+
+    n = torch.cuda.device_count()
+    base = tmp / "torchrun"
+    t0 = time.perf_counter()
+    write_raw_cases(base / "raw", seed=15, ids=TORCHRUN_IDS)
+    log(f"  {len(TORCHRUN_IDS)} raw phantoms {SERVING_SHAPE} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = Config.from_dict(torchrun_config(n))
+
+    def argv(name: str) -> list:
+        return ["--mode", "all", "--config", str(base / f"{name}.yaml"),
+                "--data_root", str(base / "raw"), "--processed_dir", str(base / name / "processed"),
+                "--splits_dir", str(base / name / "splits"), "--workdir", str(base / name / "work")]
+
+    # (i) in this process
+    cfg.tpu.distributed = False
+    cfg.save(base / "one.yaml")
+    record: dict = {}
+    undo = instrument_cli(record)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    norm_kernel.launches = 0
+    try:
+        t0 = time.perf_counter()
+        rc = cli.run(argv("one"))
+        one_s = time.perf_counter() - t0
+    finally:
+        undo()
+        torch.backends.cudnn.deterministic = deterministic
+    one_norm = norm_kernel.launches
+    if rc != 0 or one_norm == 0:
+        raise AssertionError(f"in-process --mode all: rc {rc}, norm-kernel launches {one_norm}")
+    log(f"  (i) in-process --mode all, one card: {one_s:.1f} s; s per stage "
+        f"{dict(zip(CLI_STAGES, record['stage_s']))}; norm-kernel launches {one_norm}")
+    graphs.release()
+    torch.cuda.empty_cache()
+
+    # (ii) the torchrun job
+    cfg.tpu.distributed = True
+    cfg.save(base / "job.yaml")
+    ranks_dir = base / "ranks"
+    ranks_dir.mkdir()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(n), str(REPO / "chip_smoke.py"), "--cli-rank", str(ranks_dir), *argv("job")]
+    started = time.time()
+    with open(base / "job.log", "w") as out:
+        proc = subprocess.run(cmd, stdout=out, stderr=subprocess.STDOUT, timeout=900,
+                              cwd=base, env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    job_s = time.time() - started
+    if proc.returncode != 0:
+        print((base / "job.log").read_text()[-6000:], file=sys.stderr)
+        raise AssertionError(f"torchrun job of {n} ranks exited with {proc.returncode}")
+    ranks = [json.loads((ranks_dir / f"rank_{r}.json").read_text()) for r in range(n)]
+    devices = [r["device"] for r in ranks]
+    if any(r["rc"] != 0 or r["world"] != n for r in ranks) or len(set(devices)) != n:
+        raise AssertionError(f"torchrun ranks: {[(r['rank'], r['rc'], r['device']) for r in ranks]}")
+    artifacts = str((base / "job").resolve())
+    strays = {r["rank"]: [p for p in r["written"] if p.startswith(artifacts)]
+              for r in ranks[1:]}
+    if any(strays.values()):
+        raise AssertionError(f"ranks other than 0 wrote artifact files: {strays}")
+    diffs = compare_cli_runs(base / "one", base / "job", "exact" if n == 1 else "dp")
+    job_norm = sum(r["launches"]["norm"] for r in ranks)
+    if any(r["launches"]["norm"] == 0 for r in ranks):
+        raise AssertionError(f"a rank never launched the norm kernel: "
+                             f"{[r['launches'] for r in ranks]}")
+    log(f"  (ii) torchrun --nproc_per_node {n} --mode all: {job_s:.1f} s; start-up (launch to "
+        f"process group) {max(r['group_up'] for r in ranks) - started:.1f} s")
+    for r in ranks:
+        log(f"    rank {r['rank']} on {r['device']} ({r['device_name']}): s per stage "
+            f"{dict(zip(CLI_STAGES, r['stage_s']))}, own work {r['work_s']}, peak "
+            f"{r['peak_gib']:.2f} GiB, launches {r['launches']}")
+    log(f"  job against in-process: splits and processed files equal, history relative "
+        f"{diffs['history_rel']:.3e} (losses {diffs['loss_rel']:.3e}), best model relative "
+        f"{diffs['model_rel']:.3e}, maps {diffs['map_err']:.3e}"
+        f"{', bbox JSONs and evaluate counts equal' if n == 1 else ''}; ranks 1..{n - 1} wrote "
+        f"no artifact file; on {smi}")
+    return one_norm + job_norm
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2749,6 +3067,9 @@ def main(argv=None) -> int:
                         "training steps with torch.profiler")
     parser.add_argument("--quick", action="store_true",
                         help="build and check the kernels at a small batch; skip timing and serving")
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--cli-rank"]:  # one rank of phase 15's torchrun job
+        return cli_rank(argv[1], argv[2:])
     args = parser.parse_args(argv)
 
     import torch
@@ -2950,7 +3271,14 @@ def main(argv=None) -> int:
             f"and the fused pipeline per route in three orders and eagerly, the validation sweep")
         bucket_counts = buckets_phase(tmp, state, model_path, smi)
 
-    # 15. results
+        # 15. the CLI in this process and as a torchrun job of one rank a card
+        log(f"[torchrun] --mode all on {len(TORCHRUN_IDS)} raw phantoms in this process and as "
+            f"a torchrun job of {torch.cuda.device_count()} rank(s), float32, use_pallas on")
+        t0 = time.perf_counter()
+        torchrun_norm = torchrun_phase(tmp, smi)
+        log(f"  torchrun phase {time.perf_counter() - t0:.1f} s on {smi}")
+
+    # 16. results
     def total(rows, key, weights=None):
         return sum(r[key] * (weights or {}).get(k, 1) for k, r in rows.items())
 
@@ -2978,7 +3306,7 @@ def main(argv=None) -> int:
             "replaces": "light_unet_tpu/ops/pallas_kernels.py:118",
             "launches": (counts["use_pallas"]["norm"] + fused_counts["use_pallas"]["norm"]
                          + train_val_norm + mixed_val_norm + multirank_counts["norm"]
-                         + bucket_counts["norm"]),
+                         + bucket_counts["norm"] + torchrun_norm),
             "max_abs_err": norm_err[torch.bfloat16],
             "ms": total(norm_rows, "ms", norm_calls),
             "plain_ms": total(norm_rows, "plain_ms", norm_calls),
@@ -3009,7 +3337,8 @@ def main(argv=None) -> int:
         f"{bucket_counts['block']}; instance_norm_leaky = serving {counts['use_pallas']['norm']} + "
         f"fused pipeline {fused_counts['use_pallas']['norm']} + training-phase validation "
         f"{train_val_norm} + mixed-training validation {mixed_val_norm} + multi-rank "
-        f"validation {multirank_counts['norm']} + buckets {bucket_counts['norm']}; ccl_label = "
+        f"validation {multirank_counts['norm']} + buckets {bucket_counts['norm']} + torchrun "
+        f"phase {torchrun_norm}; ccl_label = "
         f"serving {counts['fused_block']['ccl']} + fused pipeline "
         f"{fused_counts['fused_block']['ccl']} + preprocess {preprocess_ccl} + buckets "
         f"{bucket_counts['ccl']}")

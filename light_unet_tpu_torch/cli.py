@@ -6,16 +6,21 @@ checkpoint), ``inference``, ``evaluate``, and ``all`` for the five in that
 order; ``bench`` raises ``NotImplementedError`` naming its ROADMAP item.
 ``--device`` (default ``cuda``) is where every stage runs.
 
-A multi-process run (``tpu.distributed: true``, or ``tpu.num_processes`` > 1)
-makes its process group before the first stage
+A multi-process run (``tpu.distributed: true``, ``tpu.num_processes`` > 1,
+or a process that ``torchrun`` started as one of several) makes its
+process group before the first stage
 (``parallel/distributed.py:maybe_distributed_init``); each rank takes
 ``cuda:LOCAL_RANK`` unless ``--device`` names a device index or the CPU.
 The host stages (split, preprocess, evaluate) run on rank 0, train and
-inference on every rank, and the ranks meet at a barrier after each stage.
-With torchrun, ``tpu.distributed: true`` alone is enough:
+inference on every rank, and the ranks meet after each stage at a barrier
+with no deadline (rank 0's preprocess of a large cohort takes longer than
+NCCL's default timeout).  ``run`` ends the group only if it made it, so a
+caller that made the group can run several stages in one group.  Under
+torchrun the config needs no further key; ``configs/unet_fl70_pod.yaml``
+makes the global batch 2 x N and scales the learning rate by N:
 
-    torchrun --nproc_per_node 4 -m light_unet_tpu_torch.cli --mode train \
-        --config <yaml with tpu.distributed: true> --processed_dir data/processed
+    torchrun --nproc_per_node 4 -m light_unet_tpu_torch.cli --mode all \\
+        --config configs/unet_fl70_pod.yaml --data_root data/raw
 
     python -m light_unet_tpu_torch.cli --mode split --data_root data/raw --splits_dir data/splits
     python -m light_unet_tpu_torch.cli --mode preprocess --split val --data_root data/raw \\
@@ -96,11 +101,9 @@ def run(argv=None) -> int:
     config = _load_config(args)
     from light_unet_tpu_torch.parallel import distributed
 
-    if distributed.wants_distributed(config.tpu):
-        if args.device == "cuda":  # a bare "cuda": this rank's card
-            rank = distributed.init_args(config.tpu)[2]
-            args.device = f"cuda:{distributed.local_rank(rank)}"
-        distributed.maybe_distributed_init(config.tpu, args.device)
+    args.device = distributed.rank_device(config.tpu, args.device)
+    owns_group = not distributed.is_distributed_initialized()
+    distributed.maybe_distributed_init(config.tpu, args.device)
     workdir = Path(args.workdir)
     # the standard directory tree (main.py:71-77 of the reference)
     for d in (args.data_root, args.processed_dir, args.splits_dir, workdir / "models/checkpoints",
@@ -117,7 +120,8 @@ def run(argv=None) -> int:
         else:
             rc = max(rc, _run_stage(stage, args, config, workdir, split_file))
         distributed.barrier()
-    distributed.finish()
+    if owns_group:
+        distributed.finish()
     return rc
 
 

@@ -1,0 +1,14 @@
+#!/usr/bin/env python3
+"""Stage entry point of the PyTorch port: `python scripts/evaluate_torch.py`
+runs `python -m light_unet_tpu_torch.cli --mode evaluate` with the same flags
+(the counterpart of `scripts/evaluate.py`; --device defaults to cuda)."""
+
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from light_unet_tpu_torch.cli import run  # noqa: E402
+
+if __name__ == "__main__":
+    sys.exit(run(["--mode", "evaluate", *sys.argv[1:]]))

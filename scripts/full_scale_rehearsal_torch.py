@@ -18,9 +18,20 @@ GiB per runner, the training corpus's bytes and bucket, the validation path
 per epoch (device, escalated, host cases), the checkpoints left by the
 rotation, and the inference and evaluate counts.
 
+Started by ``torchrun`` (or with ``tpu.distributed: true`` in the config)
+it is one job of N ranks, one card each: the process group is made once
+and ended once, rank 0 writes the cohort and the config while the others
+wait, every stage goes through ``cli.run`` in that group, and each rank
+records its own stage seconds, epoch seconds, peak RSS and device memory.
+Rank 0 prints the record, with ``world_size``, ``process_groups_made``
+(1) and every rank's numbers under ``ranks``.  A rank's seconds for a
+host stage (split, preprocess, evaluate: rank 0's alone) are its wait.
+
     python3 scripts/full_scale_rehearsal_torch.py --workdir /tmp/rehearsal
     python3 scripts/full_scale_rehearsal_torch.py --workdir /tmp/r --cases 6 \\
         --shape 24x24x40 --epochs 1 --config tiny.yaml --device cpu
+    torchrun --standalone --nproc_per_node 4 scripts/full_scale_rehearsal_torch.py \\
+        --workdir /tmp/rehearsal --config configs/unet_fl70_pod.yaml
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -39,45 +50,22 @@ from typing import Dict, Tuple
 import numpy as np
 
 REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+from light_unet_tpu_torch.tools.synthetic import make_phantom, write_case  # noqa: E402
+
 STAGES = ("split", "preprocess", "train", "inference", "evaluate")
-
-
-def make_phantom(rng: np.random.Generator, shape: Tuple[int, int, int],
-                 n_lesions: int, lesion_radius: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
-    """(image, label) float32 phantom volumes: a body ellipsoid with hot
-    spherical lesions (the port's copy of ``tests/synthetic.py:make_phantom``,
-    the same draws from ``rng``)."""
-    zz, yy, xx = np.ogrid[: shape[0], : shape[1], : shape[2]]
-    cz, cy, cx = shape[0] / 2, shape[1] / 2, shape[2] / 2
-    body = ((zz - cz) ** 2 / (0.42 * shape[0]) ** 2 + (yy - cy) ** 2 / (0.42 * shape[1]) ** 2
-            + (xx - cx) ** 2 / (0.45 * shape[2]) ** 2) <= 1.0
-    image = body * (2.0 + 0.4 * rng.random(shape)) + 0.01 * rng.random(shape)
-    label = np.zeros(shape, np.float32)
-    for _ in range(n_lesions):
-        r = int(rng.integers(lesion_radius[0], lesion_radius[1] + 1))
-        c = [int(rng.integers(int(d * 0.3), int(d * 0.7))) for d in shape]  # inside the body
-        lesion = (zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2 <= r**2
-        image[lesion] = 8.0 + rng.random()
-        label[lesion] = 1.0
-    return image.astype(np.float32), label
 
 
 def write_cohort(raw_dir: Path, n_cases: int, shape: Tuple[int, int, int]) -> list:
     """The cohort of ``scripts/full_scale_rehearsal.py``: ids 0000.. (inside
     the FL id range), z jittered by 8 * U{-3..3}; returns the z extents."""
-    from light_unet_tpu_torch.utils import nifti
-
     rng = np.random.default_rng(42)
-    aff = np.diag([4.0, 4.0, 4.0, 1.0])
-    for sub in ("images", "labels"):
-        (raw_dir / sub).mkdir(parents=True, exist_ok=True)
     zs = []
     t0 = time.perf_counter()
     for i in range(n_cases):
         z = shape[2] + int(rng.integers(-3, 4)) * 8
         img, lab = make_phantom(rng, (shape[0], shape[1], z), int(rng.integers(2, 7)), (2, 5))
-        nifti.save(nifti.Nifti1Image(img, aff), raw_dir / f"images/{i:04d}_0000.nii.gz")
-        nifti.save(nifti.Nifti1Image(lab.astype(np.uint8), aff), raw_dir / f"labels/{i:04d}.nii.gz")
+        write_case(raw_dir, f"{i:04d}", img, lab)
         zs.append(z)
         if (i + 1) % 20 == 0:
             print(f"  cohort: {i + 1}/{n_cases} ({time.perf_counter() - t0:.0f} s)", flush=True)
@@ -158,28 +146,19 @@ def main(argv=None) -> int:
     if len(shape) != 3:
         raise SystemExit(f"--shape {args.shape}: expected DxHxW")
 
-    sys.path.insert(0, str(REPO))
     import torch
+    import torch.distributed as dist
 
     from light_unet_tpu_torch import cli
     from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.parallel import distributed
     from light_unet_tpu_torch.utils import graphs
 
-    work = Path(args.workdir)
-    work.mkdir(parents=True, exist_ok=True)
+    work = Path(args.workdir).resolve()  # the CLI resolves relative paths against it
     raw, processed, splits = work / "data/raw", work / "data/processed", work / "data/splits"
     cuda = torch.device(args.device).type == "cuda"
     if cuda and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to rehearse on the CPU")
-
-    record: Dict = {"cases": args.cases, "epochs": args.epochs, "shape": list(shape),
-                    "config": args.config, "device": args.device}
-    t0 = time.perf_counter()
-    zs = write_cohort(raw, args.cases, shape)
-    record["generate_s"] = round(time.perf_counter() - t0, 2)
-    record["z_extents"] = {str(z): zs.count(z) for z in sorted(set(zs))}
-    print(f"cohort of {args.cases} written in {record['generate_s']} s, z {record['z_extents']}",
-          flush=True)
 
     cfg = Config.load(args.config)
     cfg.training.epochs = args.epochs
@@ -188,38 +167,73 @@ def main(argv=None) -> int:
     cfg.output.save_every_n_epochs = 1  # the rotation engages within the capped run
     cfg.output.keep_last_n_checkpoints = 2
     cfg_path = work / "rehearsal_config.yaml"
-    cfg.save(cfg_path)
+
+    # one group for every stage: cli.run leaves a group it did not make alive
+    groups_made = []
+    init_process_group = dist.init_process_group
+    dist.init_process_group = lambda *a, **k: groups_made.append(1) or init_process_group(*a, **k)
+    device = distributed.rank_device(cfg.tpu, args.device)
+    multi = distributed.maybe_distributed_init(cfg.tpu, device)
+    rank = distributed.world_rank()
+
+    record: Dict = {"cases": args.cases, "epochs": args.epochs, "shape": list(shape),
+                    "config": args.config, "device": args.device}
+    if rank == 0:
+        work.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        zs = write_cohort(raw, args.cases, shape)
+        record["generate_s"] = round(time.perf_counter() - t0, 2)
+        record["z_extents"] = {str(z): zs.count(z) for z in sorted(set(zs))}
+        print(f"cohort of {args.cases} written in {record['generate_s']} s, z "
+              f"{record['z_extents']}", flush=True)
+        cfg.save(cfg_path)
+    distributed.barrier()
     record["z_bucket"] = cfg.tpu.z_bucket
 
     instrument_trainer(record)
     argv_common = ["--config", str(cfg_path), "--data_root", str(raw),
                    "--processed_dir", str(processed), "--splits_dir", str(splits),
-                   "--workdir", str(work), "--allow_test", "--device", args.device]
+                   "--workdir", str(work), "--allow_test", "--device", device]
     record.update(stage_s={}, stage_rc={}, device_memory={}, graph_runners={})
     for stage in STAGES:
         since = len(graphs.captures)
         if cuda:
-            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         rc = cli.run(["--mode", stage, *argv_common])
         if cuda:
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(device)
         record["stage_s"][stage] = round(time.perf_counter() - t0, 2)
         record["stage_rc"][stage] = rc
         if cuda:
-            reserved = torch.cuda.memory_reserved()
+            reserved = torch.cuda.memory_reserved(device)
             gc.collect()
             torch.cuda.empty_cache()
             record["device_memory"][stage] = {
-                "peak_allocated_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+                "peak_allocated_gib": round(torch.cuda.max_memory_allocated(device) / 2**30, 3),
                 "reserved_after_gib": round(reserved / 2**30, 3),
-                "reserved_after_release_gib": round(torch.cuda.memory_reserved() / 2**30, 3)}
+                "reserved_after_release_gib": round(torch.cuda.memory_reserved(device) / 2**30, 3)}
         record["graph_runners"][stage] = graph_runners(since)
-        print(f"== stage {stage}: rc {rc}, {record['stage_s'][stage]} s, peak RSS "
+        print(f"== rank {rank} stage {stage}: rc {rc}, {record['stage_s'][stage]} s, peak RSS "
               f"{rss_gib():.2f} GiB ==", flush=True)
         if rc not in (0, None):
             break
+    dist.init_process_group = init_process_group
     record["peak_rss_gib"] = round(rss_gib(), 3)
+    ok = all(rc in (0, None) for rc in record["stage_rc"].values()) \
+        and len(record["stage_rc"]) == len(STAGES)
+    if multi:
+        per_rank = {k: record.get(k) for k in ("stage_s", "stage_rc", "device_memory",
+                                               "train_epoch_s", "validation_epoch_s",
+                                               "peak_rss_gib", "steps_per_epoch")}
+        per_rank.update(rank=rank, device=device, ok=ok)
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, per_rank)
+        ok = all(r["ok"] for r in ranks)
+        distributed.finish()
+        if rank != 0:
+            return 0 if ok else 1
+        record.update(world_size=len(ranks), process_groups_made=len(groups_made), ranks=ranks)
     record["checkpoints"] = sorted(p.name for p in (work / "models/checkpoints").glob("*.ckpt"))
     record["best_model"] = (work / "models/best_model.pth").exists()
     boxes = sorted((work / "inference/bboxes").glob("*_bboxes.json"))
@@ -244,8 +258,7 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(line + "\n")
     print(line)
-    return 0 if all(rc in (0, None) for rc in record["stage_rc"].values()) \
-        and len(record["stage_rc"]) == len(STAGES) else 1
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -182,13 +182,21 @@ def _port_modules():
     return mods
 
 
+def _port_scripts():
+    return sorted(str(p) for p in (REPO / "scripts").glob("*_torch.py"))
+
+
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, load without JAX, flax or
-    the JAX package (exact name or ``light_unet_tpu.`` prefix)."""
+    """Every module of the port, chip_smoke.py and the port's scripts
+    (``scripts/*_torch.py``) load without JAX, flax or the JAX package
+    (exact name or ``light_unet_tpu.`` prefix)."""
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {_port_modules() + ['chip_smoke']!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for i, path in enumerate({_port_scripts()!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'port_script_{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax', 'light_unet_tpu')\n"
         "             or m.startswith(('jax.', 'flax.', 'optax.', 'light_unet_tpu.')))\n"
         "assert not bad, bad\n"
@@ -200,7 +208,8 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    sources = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    sources = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
+        Path(p) for p in _port_scripts()]
     for p in sources:
         for line in p.read_text().splitlines():
             s = line.strip()

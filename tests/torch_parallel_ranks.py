@@ -243,4 +243,32 @@ def _record(flatten, device_losses, losses):
     return vals
 
 
-JOBS = {"parallel": parallel_job, "trainer": trainer_job}
+def slow_stage_job(rank: int, n: int, init: str, tmp: Path, out: dict) -> None:
+    """``--mode all`` of the CLI in a group whose default timeout
+    (``timeout.txt``, seconds) is shorter than rank 0's preprocess, which
+    sleeps ``sleep.txt`` seconds first: every other rank waits that long at
+    the stage barrier."""
+    import datetime
+    import time
+
+    from light_unet_tpu_torch import cli
+    from light_unet_tpu_torch.pipeline import preprocess
+
+    timeout = datetime.timedelta(seconds=float((tmp / "timeout.txt").read_text()))
+    distributed.maybe_distributed_init(dist_config(n, rank, init), "cpu", timeout=timeout)
+    if rank == 0:
+        run_preprocess, pause = preprocess.run_preprocess, float((tmp / "sleep.txt").read_text())
+        preprocess.run_preprocess = lambda *a, **k: time.sleep(pause) or run_preprocess(*a, **k)
+    cfg = json.loads((tmp / "config.json").read_text())
+    cfg["tpu"].update(dist_fields(n, rank, init))
+    yaml = _write_yaml(cfg, tmp / f"slow_{rank}.yaml")
+    t0 = time.perf_counter()
+    out["rc"] = np.array(cli.run([
+        "--mode", "all", "--device", "cpu", "--config", str(yaml), "--data_root", str(tmp / "raw"),
+        "--processed_dir", str(tmp / "processed"), "--splits_dir", str(tmp / "splits"),
+        "--workdir", str(tmp / "work")]))
+    out["seconds"] = np.array(time.perf_counter() - t0)
+    out["group_alive"] = np.array(distributed.is_distributed_initialized())
+
+
+JOBS = {"parallel": parallel_job, "trainer": trainer_job, "slow_stage": slow_stage_job}
