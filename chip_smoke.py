@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``light_unet_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the full check (one card, about 8-11 minutes)
+    python3 chip_smoke.py            # the full check (one card, about 10-13 minutes)
     python3 chip_smoke.py --quick    # build + kernel checks at a small batch only
     python3 chip_smoke.py --profile  # also trace fused_block serving, the fused pipeline, 20 training steps
     python3 chip_smoke.py --cli-rank DIR <CLI flags>  # one rank of phase 15's torchrun job
@@ -185,7 +185,17 @@ Phases:
    card with norm-kernel launches, no rank but 0 writing a file of the
    artifact tree; logged: s per stage per rank, start-up seconds (launch
    to process group);
-16. one JSON line of per-kernel numbers (launches summed over the runs under
+16. the port's ``--mode bench`` as a user starts it (``python -m
+   light_unet_tpu_torch.cli --mode bench``, a child process: 6 raw
+   144x144x272 volumes through ``FusedVolumePipeline`` on ``Config()``'s
+   plain bf16 route, one JSON line) with its last line's key tree equal to
+   the JAX bench's (``BENCH_r05.json``) plus ``detail.tpu.device``, a value
+   above 0, finite reps, at least 3 of them, 6 volumes, backend ``cuda``;
+   then ``scripts/bench_fused_block_torch.py 192`` (the plain forward
+   against fused blocks: the block kernel launched, outputs within 5e-2)
+   and ``scripts/roofline_torch.py --route plain fused_block`` (analytic
+   operations equal to ``FlopCounterMode``'s); every line logged;
+17. one JSON line of per-kernel numbers (launches summed over the runs under
    the kernel's gate: serving, fused pipeline, the training phases'
    validation, the evaluate phase's serving, the multi-rank phase, the
    bucket phase and the torchrun phase, each logged, and the CCL kernel's in preprocess, serving,
@@ -3060,6 +3070,67 @@ def torchrun_phase(tmp: Path, smi: str) -> int:
     return one_norm + job_norm
 
 
+BENCH_KEYS_FROM = REPO / "BENCH_r05.json"  # the JAX bench's line (its ``parsed``)
+
+
+def key_tree(d):
+    return {k: key_tree(v) for k, v in d.items()} if isinstance(d, dict) else None
+
+
+def run_script(cmd: list, cwd: Path, what: str, timeout: int) -> list:
+    """``cmd`` in a child process (the repository on its path), its output
+    logged line by line; raises when it fails.  Returns its JSON lines."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True, timeout=timeout)
+    for line in res.stdout.strip().splitlines():
+        log(f"    {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"{what} exited {res.returncode}:\n{res.stderr[-4000:]}")
+    log(f"  {what}: {time.perf_counter() - t0:.1f} s on {nvidia_smi()}")
+    return [json.loads(ln) for ln in res.stdout.splitlines() if ln.startswith("{")]
+
+
+def bench_phase(tmp: Path) -> None:
+    """16: the port's ``--mode bench`` at full size (6 raw 144x144x272
+    volumes, ``Config()``: plain route, bf16) as a user starts it, its last
+    line held against the JAX bench's keys; then
+    ``scripts/bench_fused_block_torch.py 192`` (the block kernel must
+    launch, outputs within 5e-2) and ``scripts/roofline_torch.py`` on the
+    plain and ``fused_block`` routes (the analytic operations equal to
+    ``FlopCounterMode``'s).  Each line is logged."""
+    work = tmp / "bench_cli"
+    work.mkdir()
+    py = sys.executable
+    lines = run_script([py, "-m", "light_unet_tpu_torch.cli", "--mode", "bench"], work,
+                       "--mode bench", 600)
+    if not lines:
+        raise AssertionError("--mode bench printed no JSON line")
+    line = lines[-1]
+    want = key_tree(json.loads(BENCH_KEYS_FROM.read_text())["parsed"])
+    want["detail"]["tpu"]["device"] = None
+    tpu = line["detail"]["tpu"]
+    if key_tree(line) != want:
+        raise AssertionError(f"--mode bench keys differ from the JAX line's: {key_tree(line)}")
+    reps = tpu["volumes_per_sec_reps"]
+    if not (line["metric"] == "volumes_per_sec_e2e_preprocess_plus_sliding_window_144x144x272"
+            and line["value"] > 0 and tpu["backend"] == "cuda" and tpu["n_volumes"] == 6
+            and tpu["n_reps"] >= 3 and all(np.isfinite(v) and v > 0 for v in reps)):
+        raise AssertionError(f"bad --mode bench line: {line}")
+    (row,) = run_script([py, str(REPO / "scripts/bench_fused_block_torch.py"), "192"], work,
+                        "scripts/bench_fused_block_torch.py 192", 300)
+    if not (row["block_launches"] > 0 and row["max_abs_diff"] <= 5e-2):
+        raise AssertionError(f"fused-block A/B: {row}")
+    roof = run_script([py, str(REPO / "scripts/roofline_torch.py"), "--route", "plain",
+                       "fused_block"], work, "scripts/roofline_torch.py", 300)
+    if [r["route"] for r in roof] != ["plain", "fused_block"] or not all(
+            r["forward_ms_median"] > 0 and r["gflop"] == r["flop_counter_gflop"] for r in roof):
+        raise AssertionError(f"roofline lines: {roof}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -3278,7 +3349,14 @@ def main(argv=None) -> int:
         torchrun_norm = torchrun_phase(tmp, smi)
         log(f"  torchrun phase {time.perf_counter() - t0:.1f} s on {smi}")
 
-    # 16. results
+        # 16. --mode bench and two measurement scripts, each as a user starts it
+        log("[bench] python -m light_unet_tpu_torch.cli --mode bench (6 raw 144x144x272 volumes, "
+            "plain route); scripts/bench_fused_block_torch.py 192; scripts/roofline_torch.py")
+        t0 = time.perf_counter()
+        bench_phase(tmp)
+        log(f"  bench phase {time.perf_counter() - t0:.1f} s on {smi}")
+
+    # 17. results
     def total(rows, key, weights=None):
         return sum(r[key] * (weights or {}).get(k, 1) for k, r in rows.items())
 

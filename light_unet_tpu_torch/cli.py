@@ -3,8 +3,10 @@
 Same flags as the JAX package's CLI, and the same directory tree.  Stages:
 ``split``, ``preprocess``, ``train`` (``--resume`` continues from the latest
 checkpoint), ``inference``, ``evaluate``, and ``all`` for the five in that
-order; ``bench`` raises ``NotImplementedError`` naming its ROADMAP item.
-``--device`` (default ``cuda``) is where every stage runs.
+order; ``bench`` runs ``light_unet_tpu_torch/bench.py`` (the port of the
+repo's ``bench.py``: one JSON line of end-to-end volumes/s, which ignores
+``--config``, as the JAX CLI's does).  ``--device`` (default ``cuda``) is
+where every stage runs.
 
 A multi-process run (``tpu.distributed: true``, ``tpu.num_processes`` > 1,
 or a process that ``torchrun`` started as one of several) makes its
@@ -30,6 +32,7 @@ makes the global batch 2 x N and scales the learning rate by N:
     python -m light_unet_tpu_torch.cli --mode inference --config configs/unet_fl70.yaml \\
         --model_path models/best_model.pth --processed_dir data/processed
     python -m light_unet_tpu_torch.cli --mode evaluate --processed_dir data/processed
+    python -m light_unet_tpu_torch.cli --mode bench
 """
 
 from __future__ import annotations
@@ -39,10 +42,6 @@ import sys
 from pathlib import Path
 
 from light_unet_tpu_torch.config import Config
-
-_NOT_PORTED = {
-    "bench": "ROADMAP queue 1, item 16 (a benchmark of the port is later work)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -95,9 +94,6 @@ def _load_config(args) -> Config:
 
 def run(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"--mode {args.mode} is not ported to PyTorch yet: {_NOT_PORTED[args.mode]}")
     config = _load_config(args)
     from light_unet_tpu_torch.parallel import distributed
 
@@ -165,6 +161,11 @@ def _run_stage(stage: str, args, config: Config, workdir: Path, split_file: str)
         run_evaluate(config, split_file, args.prob_maps_dir or workdir / "inference/prob_maps",
                      args.processed_dir, args.output_dir or workdir / "inference",
                      device=args.device)
+        return 0
+    if stage == "bench":
+        from light_unet_tpu_torch.bench import run_bench
+
+        run_bench(device=args.device)
         return 0
 
     from light_unet_tpu_torch.core.inferencer import Inferencer

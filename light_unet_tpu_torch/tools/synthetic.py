@@ -4,14 +4,16 @@ A bright body ellipsoid, hot spherical lesions and an air background,
 written as a raw dataset tree ``images/{id}_0000.nii.gz`` +
 ``labels/{id}.nii.gz`` at 4x4x4 mm through the port's ``utils/nifti.py``.
 The draws from ``rng`` are the JAX tests' draws, so one seed gives the same
-arrays in both packages.  Used by ``scripts/synthetic_training_run_torch.py``
-and ``scripts/full_scale_rehearsal_torch.py``.
+arrays in both packages.  Used by ``light_unet_tpu_torch/bench.py``
+(``build_raw_dataset``: the JAX bench's volumes), the port's measurement
+scripts, ``scripts/synthetic_training_run_torch.py`` and
+``scripts/full_scale_rehearsal_torch.py``.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -79,6 +81,19 @@ def write_case(raw_dir: Path, case_id: str, image: np.ndarray, label: np.ndarray
     nifti.save(nifti.Nifti1Image(image, affine), raw_dir / "images" / f"{case_id}_0000.nii.gz")
     nifti.save(nifti.Nifti1Image(label.astype(np.uint8), affine),
                raw_dir / "labels" / f"{case_id}.nii.gz")
+
+
+def build_raw_dataset(raw_dir: Path, case_ids: Sequence[str],
+                      shape: Tuple[int, int, int] = (32, 32, 40), seed: int = 0,
+                      hard: bool = False) -> List[str]:
+    """One phantom a case id, drawn in order from one generator of ``seed``
+    (``tests/synthetic.py:101-113``), written as a raw dataset tree."""
+    rng = np.random.default_rng(seed)
+    make = make_phantom_hard if hard else make_phantom
+    for cid in case_ids:
+        image, label = make(rng, shape=shape)
+        write_case(raw_dir, cid, image, label)
+    return list(case_ids)
 
 
 def write_split_files(splits_dir: Path, train, val, test=()) -> None:

@@ -163,9 +163,27 @@ def test_infer_split_writes_a_trace_to_profile_dir(workspace):
 
 
 @pytest.mark.parametrize("mode", ["bench"])
-def test_cli_unported_modes_name_the_roadmap(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        cli.run(["--mode", mode])
+def test_cli_unported_modes_name_the_roadmap(mode, tmp_path, monkeypatch, capsys):
+    """No mode of the JAX CLI is left unported: ``--mode bench``, the last
+    one, prints the bench's JSON line (``light_unet_tpu_torch/bench.py``,
+    shrunk here to 2 volumes of 24x24x40, 16^3 patches and one pass; the
+    line is held in full by ``tests/test_torch_bench.py``)."""
+    import functools
+
+    from light_unet_tpu_torch import bench
+
+    tiny = {"data": {"patch_size": [16, 16, 16]}, "model": {"encoder_channels": [4, 8, 16, 32]},
+            "tpu": {"z_bucket": 16, "compute_dtype": "float32"}}
+    monkeypatch.setattr(bench, "VOLUME_SHAPE", SHAPE)
+    monkeypatch.setattr(bench, "N_VOLUMES", 2)
+    monkeypatch.setattr(bench, "PATCH", (16, 16, 16))
+    monkeypatch.setattr(bench, "default_config", lambda: Config.from_dict(tiny))
+    monkeypatch.setattr(bench, "bench_gpu", functools.partial(bench.bench_gpu, reps=1))
+    monkeypatch.chdir(tmp_path)  # the CLI makes its directory tree here
+    assert cli.run(["--mode", mode, "--device", "cpu"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["metric"] == bench.METRIC and line["value"] > 0
+    assert line["detail"]["tpu"]["backend"] == "cpu" and line["detail"]["tpu"]["n_volumes"] == 2
 
 
 def test_config_reads_the_jax_yaml():

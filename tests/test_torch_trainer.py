@@ -227,11 +227,10 @@ def test_cli_all_on_the_cpu(tmp_path):
 
 
 def test_cli_bench_and_multi_device_training_name_the_roadmap(tree):
-    """``--mode bench`` names its ROADMAP item; a ``mesh_shape`` of two
-    devices in one process raises JAX's ``ValueError`` (a two-rank trainer is
-    ``tests/test_torch_parallel_trainer.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 16"):
-        cli.run(["--mode", "bench"])
+    """A ``mesh_shape`` of two devices in one process raises JAX's
+    ``ValueError`` (a two-rank trainer is
+    ``tests/test_torch_parallel_trainer.py``; ``--mode bench`` runs now and is
+    held by ``tests/test_torch_bench.py``)."""
     multi = Config.from_dict({**_cfg(tree), "tpu": {"mesh_shape": [2]}})
     with pytest.raises(ValueError, match=r"mesh_shape \[2\] needs 2 devices, have 1"):
         Trainer(multi, workdir=str(tree / "multi"), device="cpu")
