@@ -315,8 +315,9 @@ def kernel_name(symbol: str) -> str:
 
 
 def ptxas_usage(text: str) -> list:
-    """(kernel, "N registers, S bytes spill stores") per entry of an
-    ``nvcc -Xptxas -v`` log."""
+    """(kernel, "N registers, M bytes smem, S bytes spill stores") per entry
+    of an ``nvcc -Xptxas -v`` log (static shared memory; 0 when the line
+    names none)."""
     out, kernel, spill = [], None, "?"
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(_Z\w+)'", line)
@@ -326,7 +327,9 @@ def ptxas_usage(text: str) -> list:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
         elif kernel and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            out.append((kernel, f"{regs} registers, {spill} bytes spill stores"))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((kernel, f"{regs} registers, {smem.group(1) if smem else 0} bytes smem, "
+                                f"{spill} bytes spill stores"))
             kernel = None
     return out
 
@@ -1235,19 +1238,22 @@ def profile_steps(trainer, chains: int = 5) -> None:
 def count_launches(trainer) -> tuple:
     """Wrap ``trainer.train_epoch`` and ``trainer.validate`` so that each
     call adds its norm- and block-kernel launches (and, in training, the
-    plain block's calls) to the returned counts and its seconds, between
-    two synchronizations, to the returned lists."""
+    plain block's calls; in validation, the CCL kernel's) to the returned
+    counts and its seconds, between two synchronizations, to the returned
+    lists."""
     import torch
 
-    from light_unet_tpu_torch.ops import block_kernel, norm_kernel
+    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, norm_kernel
 
-    launches = {"train": dict(norm=0, block=0, plain_block=0), "val": dict(norm=0, block=0)}
+    launches = {"train": dict(norm=0, block=0, plain_block=0),
+                "val": dict(norm=0, block=0, ccl=0)}
     epoch_s, val_s = [], []
 
     def counted(fn, where, seconds):
         def run(epoch):
             torch.cuda.synchronize()
-            n = (norm_kernel.launches, block_kernel.launches, block_kernel.plain_calls)
+            n = (norm_kernel.launches, block_kernel.launches, block_kernel.plain_calls,
+                 ccl_kernel.launches)
             t = time.perf_counter()
             out = fn(epoch)
             torch.cuda.synchronize()
@@ -1256,6 +1262,8 @@ def count_launches(trainer) -> tuple:
             launches[where]["block"] += block_kernel.launches - n[1]
             if where == "train":
                 launches[where]["plain_block"] += block_kernel.plain_calls - n[2]
+            else:
+                launches[where]["ccl"] += ccl_kernel.launches - n[3]
             return out
         return run
 
@@ -1307,7 +1315,7 @@ def check_graphs(trainer, steps: int) -> None:
 
 def train_phase(tmp: Path, data_dir: Path, ids: list, smi: str, profile: bool = False) -> tuple:
     """The port ``Trainer`` on the card; returns (best model path, val split,
-    norm-kernel launches in validation)."""
+    kernel launches in validation: norm, block, ccl)."""
     import torch
 
     from light_unet_tpu_torch.config import Config
@@ -1375,17 +1383,18 @@ def train_phase(tmp: Path, data_dir: Path, ids: list, smi: str, profile: bool = 
     del trainer, fresh
     first_step_agreement(data_dir, splits, tmp / "first_step")
     torch.cuda.empty_cache()
-    return best, splits / "val_list.txt", launches["val"]["norm"]
+    return best, splits / "val_list.txt", launches["val"]
 
 
 def evaluate_phase(tmp: Path, data_dir: Path, best: Path, split: Path, smi: str) -> dict:
     """Serve the validation phantoms with the trained model, ``run_evaluate``
     on the card, each case held against the host path; returns the serving
-    run's kernel launches."""
+    run's kernel launches, and the CCL kernel's in ``run_evaluate``
+    (``ccl_evaluate``)."""
     import torch
 
     from light_unet_tpu_torch.config import Config
-    from light_unet_tpu_torch.ops import block_kernel, norm_kernel
+    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, norm_kernel
     from light_unet_tpu_torch.ops.val_metrics import DeviceValidationSweep
     from light_unet_tpu_torch.core.inferencer import Inferencer
     from light_unet_tpu_torch.pipeline.evaluate import (
@@ -1398,19 +1407,22 @@ def evaluate_phase(tmp: Path, data_dir: Path, best: Path, split: Path, smi: str)
     work = tmp / "evaluate"
     cases = split.read_text().split()
     block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
+    ccl_kernel.launches = 0
     inf = Inferencer(SERVING, best, workdir=str(work), device="cuda")
     result = inf.infer_split(split, data_dir)
     served = dict(block=block_kernel.launches, plain_block=block_kernel.plain_calls,
-                  norm=norm_kernel.launches)
+                  norm=norm_kernel.launches, ccl=ccl_kernel.launches)
     if result["failed"] or result["successful"] != len(cases) or served["block"] == 0:
         raise AssertionError(f"serving the trained model failed: {result}, launches {served}")
     cfg = Config.from_dict(SERVING)
     maps = work / "inference/prob_maps"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    ccl_kernel.launches = 0
     summary = run_evaluate(cfg, split, maps, data_dir, work / "eval", device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    served["ccl_evaluate"] = ccl_kernel.launches
     detailed = json.loads((work / "eval/detailed_results.json").read_text())["per_case"]
     thresholds = sorted(summary)
     spacing = tuple(cfg.data.spacing.target)
@@ -1423,7 +1435,8 @@ def evaluate_phase(tmp: Path, data_dir: Path, best: Path, split: Path, smi: str)
                 raise AssertionError(f"case {cid} threshold {t}: device {dev} vs host {host[t]}")
     log(f"  served {len(cases)} cases with the trained model (launches {served}); run_evaluate "
         f"on the card {seconds / len(cases):.2f} s per case (decode, upload, sweep or host "
-        f"path, matching); every case's counts equal the host path's, DSC within 1e-9")
+        f"path, matching; CCL kernel launches {served['ccl_evaluate']}); every case's counts "
+        f"equal the host path's, DSC within 1e-9")
     # the device sweep engine on every served map, against the host path: a
     # cap of 16x the default (the trainer's escalation tier is 4x) holds the
     # speckled maps of a briefly trained model, which the evaluate stage's
@@ -1466,13 +1479,13 @@ def evaluate_phase(tmp: Path, data_dir: Path, best: Path, split: Path, smi: str)
     return served
 
 
-def mixed_phase(tmp: Path, data_dir: Path, fl_ids: list, smi: str) -> int:
+def mixed_phase(tmp: Path, data_dir: Path, fl_ids: list, smi: str) -> dict:
     """Mixed FL + DLBCL training on the card: two DLBCL phantoms preprocessed
     into the tree, run A (the shipped ``fl_epoch_plus_dlbcl`` config, one
     epoch + validation through ``Trainer.train``, then resume), run B
     (``probabilistic``, one epoch through ``Trainer.train_epoch``), one
-    float32 DLBCL step against the CPU.  Returns the norm-kernel launches of
-    run A's validation."""
+    float32 DLBCL step against the CPU.  Returns the kernel launches of run
+    A's validation (norm, block, ccl)."""
     import torch
 
     from light_unet_tpu_torch.config import Config
@@ -1598,7 +1611,7 @@ def mixed_phase(tmp: Path, data_dir: Path, fl_ids: list, smi: str) -> int:
     first_step_agreement(data_dir, splits, tmp / "mixed_step", config=mixed_train_config,
                          loader="dlbcl_loader", lesion=True)
     torch.cuda.empty_cache()
-    return launches["val"]["norm"]
+    return launches["val"]
 
 
 def graph_trainer(data_dir: Path, splits: Path, workdir: Path, graphs: bool, **tpu):
@@ -1803,17 +1816,20 @@ def serpentine(depth: int, height: int, width: int) -> np.ndarray:
 
 def ccl_masks(closed: dict, maps: dict, shape=(144, 144, 288)) -> dict:
     """13a's masks: the closed body masks of phase 5, phase 6's served maps
-    at the serving threshold, and the adversarial masks at the padded serving
+    at the serving threshold and at the validation sweep's lowest (0.1) and
+    middle (0.5) thresholds, the adversarial masks at the padded serving
     shape (a serpentine of one row a sweep round, one large blob, every
-    other voxel its own component, empty, full, random)."""
+    other voxel its own component, empty, full, random), and a random 0.6
+    mask at 144x144x240, a bucket whose last axis does not divide by the
+    kernel's 32 (ragged tiles)."""
     import torch
 
     zz, yy, xx = np.ogrid[: shape[0], : shape[1], : shape[2]]
     c = [s / 2.0 for s in shape]
     rng = np.random.default_rng(13)
     masks = dict(closed)
-    masks.update({f"served map {c} >= 0.3": torch.from_numpy((m >= 0.3).astype(np.uint8))
-                  for c, m in list(maps.items())[:2]})
+    masks.update({f"served map {c} >= {t}": torch.from_numpy((m >= t).astype(np.uint8))
+                  for t in (0.3, 0.1, 0.5) for c, m in list(maps.items())[:2]})
     adversarial = {
         "serpentine": serpentine(*shape),
         "one large blob": ((zz - c[0]) ** 2 / (c[0] - 2) ** 2 + (yy - c[1]) ** 2
@@ -1823,6 +1839,7 @@ def ccl_masks(closed: dict, maps: dict, shape=(144, 144, 288)) -> dict:
         "full": np.ones(shape, bool),
         "random 0.3": rng.random(shape) < 0.3,
         "random 0.6": rng.random(shape) < 0.6,
+        "random 0.6 ragged": rng.random((144, 144, 240)) < 0.6,
     }
     masks.update({k: torch.from_numpy(np.ascontiguousarray(v).astype(np.uint8))
                   for k, v in adversarial.items()})
@@ -1831,17 +1848,20 @@ def ccl_masks(closed: dict, maps: dict, shape=(144, 144, 288)) -> dict:
 
 def ccl_phase(masks: dict, smi: str) -> tuple:
     """13a: the CCL kernel (``csrc/ccl.cu``) against its plain version (the
-    sweeps) on every mask: int32 labels equal.  Timed (CUDA events) on the
-    closed body masks (the body mask's call), the served maps (the candidate
-    table's) and the random masks: the kernel, and on the first two the
-    plain sweeps, beside the bound: the mask read (1 byte a voxel) and the
-    labels written (4), at the card's memory rate.  Returns ({mask: row},
-    the largest |kernel - plain| label difference over every mask)."""
+    sweeps) on every mask: int32 labels equal.  The kernel timed (CUDA
+    events) on every mask: the closed body masks (the body mask's call), the
+    served maps (the candidate table's at 0.3, the validation sweep's at 0.1
+    and 0.5), the adversarial and random masks; the plain sweeps on the body
+    masks and the maps at 0.3; each beside the bound: the mask read (1 byte
+    a voxel) and the labels written (4), at the card's memory rate.  On the first body mask, the
+    first map at 0.3 and the random 0.6 mask, the device time of each of the
+    kernel's three launches (``torch.profiler``).  Returns ({mask: row}, the
+    largest |kernel - plain| label difference over every mask)."""
     import torch
 
     from light_unet_tpu_torch.ops import ccl_kernel
 
-    rows, max_err = {}, 0
+    rows, max_err, split = {}, 0, set()
     for name, mask in masks.items():
         m = mask.cuda()
         got = ccl_kernel.connected_labels(m)
@@ -1853,15 +1873,24 @@ def ccl_phase(masks: dict, smi: str) -> tuple:
             raise AssertionError(f"CCL kernel and plain sweeps differ on {name}: {bad} voxels")
         seeds = torch.arange(1, m.numel() + 1, device=m.device, dtype=torch.int32)
         row = dict(rounds=ccl_rounds(m), components=int((got.reshape(-1) == seeds).sum()))
-        if name.startswith(("closed body", "served map", "random")):
-            row["ms"] = cuda_ms(lambda: ccl_kernel.connected_labels(m), iters=10)
-            row["bound_ms"] = 5.0 * m.numel() / HBM_BYTES_PER_S * 1e3
-        if name.startswith(("closed body", "served map")):
+        row["ms"] = cuda_ms(lambda: ccl_kernel.connected_labels(m), iters=10)
+        row["bound_ms"] = 5.0 * m.numel() / HBM_BYTES_PER_S * 1e3
+        if name.startswith("closed body") or name.endswith(">= 0.3"):
             row["plain_ms"] = cuda_ms(lambda: ccl_kernel.sweep_labels(m), iters=2, warmup=1)
+        kind = next((k for k in ("closed body", "served map", "random 0.6") if name.startswith(k)),
+                    None)
+        if kind and kind not in split:
+            split.add(kind)
+            events = device_events(lambda: ccl_kernel.connected_labels(m), 5,
+                                   lambda ev: [e.count for e in ev if "ccl_" in e.key] == [5] * 3)
+            row["launch_us"] = {re.search(r"ccl_\w+", e.key).group(0):
+                                round(e.self_device_time_total / 5, 2)
+                                for e in events if "ccl_" in e.key}
         rows[name] = row
-        timing = (f"; kernel {row['ms']:.3f} ms ({row['ms'] / row['bound_ms']:.1f}x its bound "
-                  f"{row['bound_ms']:.4f} ms)" if "ms" in row else "")
+        timing = (f"; kernel {row['ms']:.4f} ms ({row['ms'] / row['bound_ms']:.1f}x its bound "
+                  f"{row['bound_ms']:.4f} ms, {100 * row['bound_ms'] / row['ms']:.1f} % of it)")
         timing += f", plain {row['plain_ms']:.1f} ms" if "plain_ms" in row else ""
+        timing += f"; device us a launch {row['launch_us']}" if "launch_us" in row else ""
         log(f"  [13a] {name} {tuple(m.shape)}: labels equal ({row['components']} components, "
             f"plain {row['rounds']} sweep rounds){timing}")
         del m, got, want
@@ -1937,14 +1966,15 @@ def units_phase(state: dict, data_dir: Path, ids: list, raw_paths: list, smi: st
     the validation sweep.  The first graphed dispatch of a key captures it;
     the next volume's dispatch is a replay run under
     ``set_sync_debug_mode("error")``.  Logged: host ms to dispatch a volume
-    and device ms, graphed and eager; capture seconds and pool a key."""
+    and device ms, graphed and eager; capture seconds and pool a key.
+    Returns (rows, the CCL kernel's launches in 13e's sweeps)."""
     import functools
 
     import torch
 
     from light_unet_tpu_torch.config import Config
     from light_unet_tpu_torch.core.inferencer import MAX_DEVICE_COMPONENTS, table_unit
-    from light_unet_tpu_torch.ops import fused
+    from light_unet_tpu_torch.ops import ccl_kernel, fused
     from light_unet_tpu_torch.ops.fused import FusedVolumePipeline
     from light_unet_tpu_torch.ops.sliding_window import SlidingWindowInferencer
     from light_unet_tpu_torch.ops.val_metrics import DeviceValidationSweep
@@ -2071,25 +2101,28 @@ def units_phase(state: dict, data_dir: Path, ids: list, raw_paths: list, smi: st
         return DeviceValidationSweep(thresholds, max_components=cap, graphs=graphs,
                                      device="cuda")
 
+    ccl_kernel.launches = 0
     same, times, summary, _ = run_pair(make_sweep, lambda e, i: served,
                                        lambda e, p: e.tables(p, gt), lambda res: res)
     rows.append(dict(unit="sweep", route="-", dtype="-", same=same, times=times))
     big = make_sweep(True, 4 * 4096)
     big.tables(served, gt)
     _, big_host, big_dev = timed_dispatch(big.tables, served, gt)
+    sweep_ccl = ccl_kernel.launches
     log(f"  [13e] validation sweep, {len(thresholds)} thresholds in one unit, cap 4096 (the "
         f"trainer's): graphed vs eager bit-identical {same}; host ms {times[True][0]:.2f} vs "
         f"{times[False][0]:.2f}, device ms {times[True][1]:.1f} vs {times[False][1]:.1f} "
         f"({times[True][1] / len(thresholds):.2f} ms a threshold graphed); {summary}; cap 16384 "
         f"(the escalation tier) graphed: host ms {big_host * 1e3:.2f}, device ms {big_dev:.1f} "
-        f"({big_dev / len(thresholds):.2f} ms a threshold) on {smi}")
+        f"({big_dev / len(thresholds):.2f} ms a threshold); CCL kernel launches {sweep_ccl} "
+        f"(one a threshold a dispatch, replays counted) on {smi}")
     del big
     profile_unit(lambda: make_sweep(False).tables(served, gt),
                  f"validation sweep ({len(thresholds)} thresholds, cap 4096)")
     bad = [(r["unit"], r["route"], r["dtype"]) for r in rows if not r["same"]]
     if bad:
         raise AssertionError(f"graphed and eager differ: {bad}")
-    return rows
+    return rows, sweep_ccl
 
 
 def serving_ab(cfg: dict, model_path: Path, data_dir: Path, split: Path, tmp: Path,
@@ -2589,7 +2622,7 @@ def multirank_rank(rank: int, n: int, init: str, work: str, plan: dict) -> None:
     from light_unet_tpu_torch.config import Config
     from light_unet_tpu_torch.core.inferencer import Inferencer
     from light_unet_tpu_torch.core.trainer import Trainer
-    from light_unet_tpu_torch.ops import block_kernel, norm_kernel
+    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, norm_kernel
     from light_unet_tpu_torch.parallel import distributed
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2606,7 +2639,7 @@ def multirank_rank(rank: int, n: int, init: str, work: str, plan: dict) -> None:
             cfg["tpu"].update(over, **fields)
             inf = Inferencer(cfg, plan["model"], workdir=str(work / f"{name}_r{rank}"),
                              device=device)
-            block_kernel.launches = block_kernel.plain_calls = 0
+            block_kernel.launches = block_kernel.plain_calls = ccl_kernel.launches = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -2614,6 +2647,7 @@ def multirank_rank(rank: int, n: int, init: str, work: str, plan: dict) -> None:
             torch.cuda.synchronize()
             out[name] = dict(seconds=time.perf_counter() - t0, ok=res["successful"],
                              slab=bool(inf.sw.spatial_shard), block=block_kernel.launches,
+                             ccl=ccl_kernel.launches,
                              plain_block=block_kernel.plain_calls,
                              peak=torch.cuda.max_memory_allocated())
             del inf
@@ -2633,13 +2667,14 @@ def multirank_rank(rank: int, n: int, init: str, work: str, plan: dict) -> None:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         step_launches = dict(norm=norm_kernel.launches, block=block_kernel.launches)
-        norm_kernel.launches = 0
+        norm_kernel.launches = ccl_kernel.launches = 0
         t1 = time.perf_counter()
         val_loss, metrics = tr.validate(0)
         torch.cuda.synchronize()
         out["train"] = dict(
             steps=len(losses) + 4, ms_per_step=seconds / len(losses) * 1e3, losses=losses,
             step_launches=step_launches, val_norm=norm_kernel.launches,
+            val_ccl=ccl_kernel.launches,
             val_s=time.perf_counter() - t1, val_loss=val_loss, recall=metrics["best_recall"],
             peak=torch.cuda.max_memory_allocated(), rows=int(tr.corpus.images.shape[0]),
             global_batch=tr.global_batch, replays=tr.graphs.replays if tr.graphs else 0)
@@ -2768,7 +2803,9 @@ def multirank_phase(tmp: Path, data_dir: Path, case_id: str, model_path: Path, b
     if not max(rel) <= 1e-4:
         raise AssertionError(f"float32 data-parallel steps differ from one process: {rel}")
     return dict(block=sum(g[name]["block"] for g in got for name, _ in MULTIRANK_SERVING),
-                norm=sum(t["val_norm"] for t in trains))
+                norm=sum(t["val_norm"] for t in trains),
+                ccl=sum(g[name]["ccl"] for g in got for name, _ in MULTIRANK_SERVING)
+                + sum(t["val_ccl"] for t in trains))
 
 
 TORCHRUN_IDS = [f"{i:04d}" for i in range(31, 37)]
@@ -2981,14 +3018,14 @@ def torchrun_phase(tmp: Path, smi: str) -> int:
     shared workdir), each run into its own tree, held by
     ``compare_cli_runs`` and with every rank of the job on its own card and
     no rank but 0 writing a file of the artifact tree.  Returns the norm
-    kernel's launches in both runs."""
+    and CCL kernels' launches in both runs."""
     import os
 
     import torch
 
     from light_unet_tpu_torch import cli
     from light_unet_tpu_torch.config import Config
-    from light_unet_tpu_torch.ops import norm_kernel
+    from light_unet_tpu_torch.ops import ccl_kernel, norm_kernel
     from light_unet_tpu_torch.utils import graphs
 
     n = torch.cuda.device_count()
@@ -3011,7 +3048,7 @@ def torchrun_phase(tmp: Path, smi: str) -> int:
     undo = instrument_cli(record)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    norm_kernel.launches = 0
+    norm_kernel.launches = ccl_kernel.launches = 0
     try:
         t0 = time.perf_counter()
         rc = cli.run(argv("one"))
@@ -3019,11 +3056,12 @@ def torchrun_phase(tmp: Path, smi: str) -> int:
     finally:
         undo()
         torch.backends.cudnn.deterministic = deterministic
-    one_norm = norm_kernel.launches
+    one_norm, one_ccl = norm_kernel.launches, ccl_kernel.launches
     if rc != 0 or one_norm == 0:
         raise AssertionError(f"in-process --mode all: rc {rc}, norm-kernel launches {one_norm}")
     log(f"  (i) in-process --mode all, one card: {one_s:.1f} s; s per stage "
-        f"{dict(zip(CLI_STAGES, record['stage_s']))}; norm-kernel launches {one_norm}")
+        f"{dict(zip(CLI_STAGES, record['stage_s']))}; norm-kernel launches {one_norm}, CCL "
+        f"kernel launches {one_ccl}")
     graphs.release()
     torch.cuda.empty_cache()
 
@@ -3067,7 +3105,8 @@ def torchrun_phase(tmp: Path, smi: str) -> int:
         f"{diffs['model_rel']:.3e}, maps {diffs['map_err']:.3e}"
         f"{', bbox JSONs and evaluate counts equal' if n == 1 else ''}; ranks 1..{n - 1} wrote "
         f"no artifact file; on {smi}")
-    return one_norm + job_norm
+    return dict(norm=one_norm + job_norm,
+                ccl=one_ccl + sum(r["launches"]["ccl"] for r in ranks))
 
 
 BENCH_KEYS_FROM = REPO / "BENCH_r05.json"  # the JAX bench's line (its ``parsed``)
@@ -3291,7 +3330,7 @@ def main(argv=None) -> int:
         ids = [p.name.split("_")[0] for p in raw_paths]
         log(f"[train] the port Trainer, configs/unet_fl70.yaml model, bf16, batch 2, 48^3, "
             f"train {ids[:2]}, validate {ids[2:]}, 2 epochs, use_pallas on")
-        best, val_split, train_val_norm = train_phase(tmp, data_dir, ids, smi, profile=args.profile)
+        best, val_split, train_val = train_phase(tmp, data_dir, ids, smi, profile=args.profile)
 
         # 9. the evaluate stage on the trained model's maps
         log(f"[evaluate] {val_split.read_text().split()} served with the trained model, "
@@ -3302,7 +3341,7 @@ def main(argv=None) -> int:
         log(f"[mixed] configs/unet_mixed_fl_dlbcl.yaml, train FL {ids[:2]} + DLBCL 1001-1002, "
             f"validate FL {ids[2:]}, 1 epoch, use_pallas on")
         t0 = time.perf_counter()
-        mixed_val_norm = mixed_phase(tmp, data_dir, ids, smi)
+        mixed_val = mixed_phase(tmp, data_dir, ids, smi)
         log(f"  mixed phase {time.perf_counter() - t0:.1f} s on {smi}")
 
         # 11. multi-rank on one card: NCCL with one rank, then 2 gloo ranks
@@ -3330,7 +3369,7 @@ def main(argv=None) -> int:
             "and eager per route and dtype; serving graphed and eager")
         t0 = time.perf_counter()
         ccl_rows, ccl_err = ccl_phase(ccl_masks(closed_masks, runs["fused_block"]), smi)
-        unit_rows = units_phase(state, data_dir, ids, raw_paths, smi)
+        unit_rows, sweep_ccl = units_phase(state, data_dir, ids, raw_paths, smi)
         cfg = json.loads(json.dumps(SERVING))
         serving_ab(cfg, model_path, data_dir, split, tmp, runs["fused_block"], smi)
         serving_phases(cfg, model_path, data_dir, split.read_text().split()[0],
@@ -3346,7 +3385,7 @@ def main(argv=None) -> int:
         log(f"[torchrun] --mode all on {len(TORCHRUN_IDS)} raw phantoms in this process and as "
             f"a torchrun job of {torch.cuda.device_count()} rank(s), float32, use_pallas on")
         t0 = time.perf_counter()
-        torchrun_norm = torchrun_phase(tmp, smi)
+        torchrun_counts = torchrun_phase(tmp, smi)
         log(f"  torchrun phase {time.perf_counter() - t0:.1f} s on {smi}")
 
         # 16. --mode bench and two measurement scripts, each as a user starts it
@@ -3364,6 +3403,20 @@ def main(argv=None) -> int:
     norm_calls = {(48, 16): 6, (24, 32): 6, (12, 64): 6, (6, 128): 5}
     norm_bytes, norm_ops = total(norm_rows, "bytes_ms", norm_calls), total(norm_rows, "ops_ms", norm_calls)
     blk_bytes, blk_ops = total(block_rows, "bytes_ms"), total(block_rows, "ops_ms")
+    # the CCL kernel's launches by path, replays counted
+    ccl_paths = {
+        "serving (3 routes)": sum(c["ccl"] for c in counts.values()),
+        "fused pipeline (3 routes)": sum(c["ccl"] for c in fused_counts.values()),
+        "preprocess": preprocess_ccl,
+        "training validation (8)": train_val["ccl"],
+        "evaluate-phase serving (9)": eval_counts["ccl"],
+        "run_evaluate (9)": eval_counts["ccl_evaluate"],
+        "mixed-training validation (10)": mixed_val["ccl"],
+        "multi-rank serving and validation (11)": multirank_counts["ccl"],
+        "validation sweep (13e)": sweep_ccl,
+        "buckets (14)": bucket_counts["ccl"],
+        "torchrun (15)": torchrun_counts["ccl"],
+    }
     kernels = [
         {
             "name": "residual_block", "route": "cuda",
@@ -3383,8 +3436,8 @@ def main(argv=None) -> int:
             "source": "light_unet_tpu_torch/csrc/instance_norm.cu",
             "replaces": "light_unet_tpu/ops/pallas_kernels.py:118",
             "launches": (counts["use_pallas"]["norm"] + fused_counts["use_pallas"]["norm"]
-                         + train_val_norm + mixed_val_norm + multirank_counts["norm"]
-                         + bucket_counts["norm"] + torchrun_norm),
+                         + train_val["norm"] + mixed_val["norm"] + multirank_counts["norm"]
+                         + bucket_counts["norm"] + torchrun_counts["norm"]),
             "max_abs_err": norm_err[torch.bfloat16],
             "ms": total(norm_rows, "ms", norm_calls),
             "plain_ms": total(norm_rows, "plain_ms", norm_calls),
@@ -3397,8 +3450,7 @@ def main(argv=None) -> int:
             "name": "ccl_label", "route": "cuda",
             "source": "light_unet_tpu_torch/csrc/ccl.cu",
             "replaces": "light_unet_tpu/ops/ccl.py:56",
-            "launches": (counts["fused_block"]["ccl"] + fused_counts["fused_block"]["ccl"]
-                         + preprocess_ccl + bucket_counts["ccl"]),
+            "launches": sum(ccl_paths.values()),
             "max_abs_err": float(ccl_err),
             "ms": float(np.mean([r["ms"] for k, r in ccl_rows.items() if "closed" in k])),
             "plain_ms": float(np.mean([r["plain_ms"] for k, r in ccl_rows.items()
@@ -3414,12 +3466,10 @@ def main(argv=None) -> int:
         f"{eval_counts['block']} + multi-rank serving {multirank_counts['block']} + buckets "
         f"{bucket_counts['block']}; instance_norm_leaky = serving {counts['use_pallas']['norm']} + "
         f"fused pipeline {fused_counts['use_pallas']['norm']} + training-phase validation "
-        f"{train_val_norm} + mixed-training validation {mixed_val_norm} + multi-rank "
+        f"{train_val['norm']} + mixed-training validation {mixed_val['norm']} + multi-rank "
         f"validation {multirank_counts['norm']} + buckets {bucket_counts['norm']} + torchrun "
-        f"phase {torchrun_norm}; ccl_label = "
-        f"serving {counts['fused_block']['ccl']} + fused pipeline "
-        f"{fused_counts['fused_block']['ccl']} + preprocess {preprocess_ccl} + buckets "
-        f"{bucket_counts['ccl']}")
+        f"phase {torchrun_counts['norm']}; ccl_label = "
+        + " + ".join(f"{k} {v}" for k, v in ccl_paths.items()))
     log("[result] ccl_label times are means over the 4 closed body masks (144x144x288); "
         f"max_abs_err {ccl_err} is the largest label difference from the plain sweeps over "
         "every mask of phase 13a")

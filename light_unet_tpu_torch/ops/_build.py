@@ -42,7 +42,7 @@ CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-ffp-contract
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 ENTRIES = {
     "ccl": {
-        # fg, parent, labels, D, H, W, stream
+        # fg, labels, D, H, W, stream
         "ccl_label": [_P] * 2 + [_I] * 3 + [_P],
     },
     "instance_norm": {

@@ -6,12 +6,13 @@ Each component carries the largest flat index of its voxels + 1, the
 background 0, as int32, exactly as the JAX package labels.
 
 On a CUDA tensor ``connected_labels`` launches the kernel (three launches:
-init, merge, finalize; no host read; its union-find forest lives in the
-label array) or raises; on a CPU tensor it runs the plain version beside
-it, ``sweep_labels``: every foreground voxel starts
-with its ``flat index + 1``, and directional sweeps of a masked running max
-(forward and backward along each axis) repeat until a full round changes
-nothing, as the JAX package's ``lax.while_loop`` does.  Its loop reads a
+each tile of 8x8x32 voxels labelled in shared memory, the tiles' faces
+merged in the label array, finalize; no host read, no scratch: its global
+union-find forest lives in the label array) or raises; on a CPU tensor it
+runs the plain version beside it, ``sweep_labels``: every foreground voxel
+starts with its ``flat index + 1``, and directional sweeps of a masked
+running max (forward and backward along each axis) repeat until a full
+round changes nothing, as the JAX package's ``lax.while_loop`` does.  Its loop reads a
 device value on the host each round, so it is never the card's path.
 ``launches`` counts kernel calls.
 
