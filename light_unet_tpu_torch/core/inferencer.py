@@ -50,7 +50,7 @@ from light_unet_tpu_torch.ops.sliding_window import (
     on_device,
 )
 from light_unet_tpu_torch.parallel.mesh import mesh_from_config
-from light_unet_tpu_torch.utils import fastio, nifti
+from light_unet_tpu_torch.utils import fastio, nifti, tracing
 from light_unet_tpu_torch.utils.device import precision_scope, resolve_device
 from light_unet_tpu_torch.utils.graphs import run_unit, runner_for, unit_key
 
@@ -200,7 +200,9 @@ class Inferencer:
         """Candidate table on the device; fetch + save the map unless
         ``save_prob_maps=False``; write the bboxes JSON.  On a mesh the first
         rank does this (in slab mode after gathering the slabs, which every
-        rank joins); the others return at once."""
+        rank joins); the others return at once.  Spans, in order: ``table``
+        (the unit's enqueue), ``fetch``, ``write.map``, ``table.read``,
+        ``bboxes``, ``write.json``."""
         cfg = self.config
         prob_dev, vol_shape = dispatched
         if isinstance(prob_dev, SlabShards):
@@ -210,7 +212,7 @@ class Inferencer:
             return True
         prob_dev = on_device(prob_dev)  # the dense map stays on the device
         thr = torch.full((), float(np.float32(threshold)), device=prob_dev.device)
-        with precision_scope(self.compute_dtype):
+        with tracing.span("table"), precision_scope(self.compute_dtype):
             table, n_comp = run_unit(
                 self.table_graphs, unit_key("table", max_components=MAX_DEVICE_COMPONENTS),
                 functools.partial(table_unit, max_components=MAX_DEVICE_COMPONENTS),
@@ -225,25 +227,29 @@ class Inferencer:
                 self.prob_maps_dir / f"{case_id}_prob.nii.gz",
             )
 
-        bboxes = bboxes_from_table(
-            table.cpu().numpy(),
-            int(n_comp),
-            vol_shape,
-            min_volume_cc=cfg.data.volume_threshold.inference_cc,
-            spacing=inputs["spacing"],
-            expansion_voxels=cfg.data.bbox_expansion_voxels,
-            max_components=MAX_DEVICE_COMPONENTS,
-        )
-        if bboxes is None:  # > MAX_DEVICE_COMPONENTS candidates: host fallback
-            if prob_map is None:
-                prob_map = self.sw.fetch(dispatched)
-            bboxes = extract_bboxes(
-                prob_map,
-                threshold=threshold,
+        with tracing.span("table.read"):
+            table_np, n_comp = table.cpu().numpy(), int(n_comp)
+        with tracing.span("bboxes"):
+            bboxes = bboxes_from_table(
+                table_np,
+                n_comp,
+                vol_shape,
                 min_volume_cc=cfg.data.volume_threshold.inference_cc,
                 spacing=inputs["spacing"],
                 expansion_voxels=cfg.data.bbox_expansion_voxels,
+                max_components=MAX_DEVICE_COMPONENTS,
             )
+            if bboxes is None:  # > MAX_DEVICE_COMPONENTS candidates: host fallback
+                tracing.count("table.host_fallback")
+                if prob_map is None:
+                    prob_map = self.sw.fetch(dispatched)
+                bboxes = extract_bboxes(
+                    prob_map,
+                    threshold=threshold,
+                    min_volume_cc=cfg.data.volume_threshold.inference_cc,
+                    spacing=inputs["spacing"],
+                    expansion_voxels=cfg.data.bbox_expansion_voxels,
+                )
         bbox_json = {
             "case_id": case_id,
             "processing_path": "B",
@@ -252,7 +258,8 @@ class Inferencer:
             "num_candidates": len(bboxes),
             "candidates": bboxes,
         }
-        with open(self.bboxes_dir / f"{case_id}_bboxes.json", "w") as f:
+        path = self.bboxes_dir / f"{case_id}_bboxes.json"
+        with tracing.span("write.json"), open(path, "w") as f:
             json.dump(bbox_json, f, indent=2)
         return True
 
@@ -263,21 +270,22 @@ class Inferencer:
     def infer_case(self, case_id: str, data_dir, threshold: float = 0.3) -> bool:
         data_dir = Path(data_dir)
         try:
-            inputs = self._load_case_inputs(case_id, data_dir)
-            if inputs is None:
-                return False
-            dispatched = self._dispatch(inputs["prepared"])
-            return self._finalize_case(case_id, inputs, dispatched, threshold)
+            with tracing.request(case_id):
+                inputs = self._load_case_inputs(case_id, data_dir)
+                if inputs is None:
+                    return False
+                dispatched = self._dispatch(inputs["prepared"])
+                return self._finalize_case(case_id, inputs, dispatched, threshold)
         except Exception as e:  # noqa: BLE001 - per-case isolation like the reference
             print(f"Error during inference execution for {case_id}: {e}")
             return False
 
     def infer_split(self, split_file, data_dir) -> Dict:
         """Pipelined split inference: a worker thread decodes case i+1 while
-        the device computes case i and the host post-processes case i-1."""
-        from light_unet_tpu_torch.utils.tracing import maybe_profile
-
-        with maybe_profile(self.config.tpu.profile_dir):
+        the device computes case i and the host post-processes case i-1.
+        Every span of a case carries its id (``utils/tracing.py``); the main
+        thread's wait for the next decoded case is the span ``wait_input``."""
+        with tracing.maybe_profile(self.config.tpu.profile_dir):
             return self._infer_split_impl(split_file, data_dir)
 
     def _infer_split_impl(self, split_file, data_dir) -> Dict:
@@ -294,7 +302,8 @@ class Inferencer:
             # decode failures stay per-case: an exception raised inside
             # pool.map would abort the whole split
             try:
-                return self._load_case_inputs(cid, data_dir)
+                with tracing.request(cid):
+                    return self._load_case_inputs(cid, data_dir)
             except Exception as e:  # noqa: BLE001 - per-case isolation
                 print(f"Error loading inputs for {cid}: {e}")
                 return None
@@ -302,7 +311,9 @@ class Inferencer:
         def finalize(case_id, inputs, dispatched):
             nonlocal successful
             try:
-                if self._finalize_case(case_id, inputs, dispatched, threshold):
+                with tracing.request(case_id):
+                    done = self._finalize_case(case_id, inputs, dispatched, threshold)
+                if done:
                     successful += 1
             except Exception as e:  # noqa: BLE001 - per-case isolation
                 print(f"Error finalizing {case_id}: {e}")
@@ -311,12 +322,15 @@ class Inferencer:
         pending = None  # (case_id, inputs, dispatched)
         with ThreadPoolExecutor(max_workers=2) as pool:
             decoded = pool.map(safe_load, case_ids)
-            for case_id, inputs in zip(case_ids, decoded):
+            for case_id in case_ids:
+                with tracing.span("wait_input", case_id):
+                    inputs = next(decoded)
                 if inputs is None:
                     failed.append(case_id)
                     continue
                 try:
-                    dispatched = self._dispatch(inputs["prepared"])
+                    with tracing.request(case_id):
+                        dispatched = self._dispatch(inputs["prepared"])
                 except Exception as e:  # noqa: BLE001 - per-case isolation
                     print(f"Error during inference execution for {case_id}: {e}")
                     failed.append(case_id)

@@ -25,6 +25,7 @@ a model built with ``use_pallas`` (the fused norm kernel), or
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
@@ -51,12 +52,12 @@ from light_unet_tpu_torch.ops.sliding_window import (
     bucketed_shape,
     choose_chunks,
     compute_positions,
-    fetch_host,
+    host_map,
     sliding_window_core,
     start_host_copy,
 )
 from light_unet_tpu_torch.ops.sparse_fetch import block_cap
-from light_unet_tpu_torch.utils import fastio
+from light_unet_tpu_torch.utils import fastio, tracing
 from light_unet_tpu_torch.utils.device import resolve_device
 from light_unet_tpu_torch.utils.graphs import run_unit, runner_for, unit_key
 
@@ -175,8 +176,9 @@ def fused_unit(volume, true_dims, lohi, positions, mask, *, imp_map, apply_fn, p
 
 class FusedPrep(NamedTuple):
     """One volume's ``FusedVolumePipeline.prepare``: the uploaded padded
-    volume, its true shape, clip values, window schedule, and what differs
-    per volume as device data."""
+    volume, its true shape, clip values, window schedule, what differs
+    per volume as device data, and the volume's sequence number (the
+    request id of its spans)."""
 
     volume: torch.Tensor
     shape: Tuple[int, int, int]
@@ -187,6 +189,16 @@ class FusedPrep(NamedTuple):
     lohi: torch.Tensor
     positions: torch.Tensor
     weights: torch.Tensor
+    req: int
+
+
+class FusedDispatch(NamedTuple):
+    """One volume's ``FusedVolumePipeline.dispatch``: the result on the
+    device, the original shape, and the volume's sequence number."""
+
+    out: object
+    shape: Tuple[int, int, int]
+    req: int
 
 
 class FusedVolumePipeline:
@@ -221,38 +233,46 @@ class FusedVolumePipeline:
         self.sparse_fetch = bool(getattr(config.tpu, "sparse_fetch", False))
         self.sparse_frac = float(getattr(config.tpu, "sparse_fetch_frac", 1.0))
         self.sparse_block = 8
+        self._seq = itertools.count()  # volumes' sequence numbers (next() is atomic)
 
     def prepare(self, image: np.ndarray) -> FusedPrep:
         """Host side of one volume: clip values and the uint16 quantize + pad
         (native host library, ``utils/fastio.py``) or a cast and pad, patch
-        grid, and the uploads (``non_blocking``)."""
-        intensity = self.cfg.data.intensity
-        image = np.asarray(image, dtype=np.float32)
-        lo, hi = compute_clip_values(image, intensity.clip_percentile_low,
-                                     intensity.clip_percentile_high)
-        shape = image.shape
-        pshape = bucketed_shape(shape, self.patch_size, self.z_bucket)
-        if self.transfer_dtype == "uint16":  # one native pass: clip, scale, round, pad
-            padded = fastio.quantize_pad(image, pshape, lo, hi)
-            host = torch.from_numpy(padded.view(np.int16))
-        else:
-            padded = np.zeros(pshape, np.float32)
-            padded[tuple(slice(0, s) for s in shape)] = image
-            host = torch.from_numpy(padded)
-            if self.transfer_dtype == "bfloat16":
-                host = host.to(torch.bfloat16)
-        positions = compute_positions(shape, self.patch_size, 0.5)
-        n = len(positions)
-        chunk, tail, n_pad = choose_chunks(n, self.patch_batch)
-        posp = np.zeros((n_pad, 3), np.int64)
-        posp[:n] = positions
-        weights = np.zeros(n_pad, np.float32)
-        weights[:n] = 1.0
-        dev = self.device
-        return FusedPrep(host.to(dev, non_blocking=True), shape, lo, hi, (chunk, tail),
-                         _upload(np.asarray(shape, np.int32), dev),
-                         _upload(np.asarray([lo, hi], np.float32), dev),
-                         _upload(posp, dev), _upload(weights, dev))
+        grid, and the uploads (``non_blocking``).  Spans ``prepare`` with
+        ``prepare.clip``, ``prepare.quantize`` and ``prepare.upload``, under
+        the volume's new sequence number."""
+        req = next(self._seq)
+        with tracing.span("prepare", req):
+            intensity = self.cfg.data.intensity
+            image = np.asarray(image, dtype=np.float32)
+            with tracing.span("prepare.clip"):
+                lo, hi = compute_clip_values(image, intensity.clip_percentile_low,
+                                             intensity.clip_percentile_high)
+            shape = image.shape
+            pshape = bucketed_shape(shape, self.patch_size, self.z_bucket)
+            with tracing.span("prepare.quantize"):
+                if self.transfer_dtype == "uint16":  # one native pass: clip, scale, round, pad
+                    padded = fastio.quantize_pad(image, pshape, lo, hi)
+                    host = torch.from_numpy(padded.view(np.int16))
+                else:
+                    padded = np.zeros(pshape, np.float32)
+                    padded[tuple(slice(0, s) for s in shape)] = image
+                    host = torch.from_numpy(padded)
+                    if self.transfer_dtype == "bfloat16":
+                        host = host.to(torch.bfloat16)
+            positions = compute_positions(shape, self.patch_size, 0.5)
+            n = len(positions)
+            chunk, tail, n_pad = choose_chunks(n, self.patch_batch)
+            posp = np.zeros((n_pad, 3), np.int64)
+            posp[:n] = positions
+            weights = np.zeros(n_pad, np.float32)
+            weights[:n] = 1.0
+            dev = self.device
+            with tracing.span("prepare.upload"):
+                return FusedPrep(_upload(host, dev), shape, lo, hi, (chunk, tail),
+                                 _upload(np.asarray(shape, np.int32), dev),
+                                 _upload(np.asarray([lo, hi], np.float32), dev),
+                                 _upload(posp, dev), _upload(weights, dev), req)
 
     def sparse_cap(self, padded_shape) -> int:
         """The block-sparse fetch's tile capacity (0: a dense fetch)."""
@@ -277,27 +297,25 @@ class FusedVolumePipeline:
         return unit_key("fused", self.apply_fn, **static), fn, inputs
 
     @torch.no_grad()
-    def dispatch(self, image_or_prepared):
+    def dispatch(self, image_or_prepared) -> FusedDispatch:
         """Enqueue the program for one volume (an image or a ``prepare()``
-        result); returns (result on the device, original shape)."""
+        result); returns (result on the device, original shape, sequence
+        number)."""
         prep = (image_or_prepared if isinstance(image_or_prepared, tuple)
                 else self.prepare(image_or_prepared))
-        key, fn, inputs = self.unit(prep)
-        out = as_result(run_unit(self.graphs, key, fn, *inputs),
-                        self.sparse_cap(prep.volume.shape), self.sparse_block)
-        if self.host_prefetch and self.device.type == "cuda":
-            out = start_host_copy(out)  # fetch() waits on its event
-        return out, prep.shape
+        with tracing.span("dispatch", prep.req):
+            key, fn, inputs = self.unit(prep)
+            out = as_result(run_unit(self.graphs, key, fn, *inputs),
+                            self.sparse_cap(prep.volume.shape), self.sparse_block)
+            if self.host_prefetch and self.device.type == "cuda":
+                out = start_host_copy(out)  # fetch() waits on its event
+            return FusedDispatch(out, prep.shape, prep.req)
 
     @staticmethod
-    def fetch(dispatched) -> np.ndarray:
+    def fetch(dispatched: FusedDispatch) -> np.ndarray:
         """The map of one ``dispatch()`` on the host, float32, original shape."""
-        out, shape = dispatched
-        host = fetch_host(out)[: shape[0], : shape[1], : shape[2]]
-        if host.dtype == np.uint16:  # quantized fetch -> dequantize on the host
-            host = host.astype(np.float32)
-            host *= np.float32(1.0 / 65535.0)
-        return host
+        with tracing.span("fetch", dispatched.req):
+            return host_map(dispatched.out, dispatched.shape)
 
     def __call__(self, image: np.ndarray) -> np.ndarray:
         return self.fetch(self.dispatch(image))

@@ -66,9 +66,12 @@ from light_unet_tpu_torch.ops.sparse_fetch import (
     SparsePack,
     block_cap,
     fetch_maybe_sparse,
+    host_parts,
     pack_blocks,
     to_numpy,
+    unpack_parts,
 )
+from light_unet_tpu_torch.utils import tracing
 from light_unet_tpu_torch.utils.device import resolve_device
 from light_unet_tpu_torch.utils.graphs import run_unit, runner_for, unit_key
 
@@ -364,8 +367,12 @@ def sliding_window_core_slab_sharded(vol, true_dims, vrange, positions, mask, po
     return _finalize_output(out, quantize_out, 0, 8)
 
 
-def _upload(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device, non_blocking=True)
+def _upload(a, device) -> torch.Tensor:
+    """A host array (or CPU tensor) on ``device`` without blocking; counts
+    ``upload.bytes``."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+    tracing.count("upload.bytes", t.numel() * t.element_size())
+    return t.to(device, non_blocking=True)
 
 
 class SlabShards(NamedTuple):
@@ -396,12 +403,13 @@ def start_host_copy(out):
     A ``SparsePack`` sends only its count: its tiles are sliced to the
     occupied bucket at fetch time, so copying all of them would move the
     bytes sparse fetch exists to avoid."""
-    src = out.count if isinstance(out, SparsePack) else out
-    host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-    host.copy_(src, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    return HostPrefetch(out, host, done)
+    with tracing.span("copy_start"):
+        src = out.count if isinstance(out, SparsePack) else out
+        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        host.copy_(src, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return HostPrefetch(out, host, done)
 
 
 def on_device(out):
@@ -413,13 +421,29 @@ def on_device(out):
 
 
 def fetch_host(out) -> np.ndarray:
-    """A dispatch result on the host, padded shape, in its fetch dtype."""
-    if isinstance(out, HostPrefetch):
+    """A dispatch result on the host, padded shape, in its fetch dtype: the
+    span ``fetch.sync`` (the prefetch's event, the tile count and the tile
+    copies), then ``fetch.unpack`` for a packed result."""
+    if not isinstance(out, HostPrefetch):
+        return fetch_maybe_sparse(out)
+    with tracing.span("fetch.sync"):
         out.done.synchronize()
-        if isinstance(out.out, SparsePack):
-            return fetch_maybe_sparse(out.out._replace(count=out.host))
-        return to_numpy(out.host)
-    return fetch_maybe_sparse(out)
+        if not isinstance(out.out, SparsePack):
+            return to_numpy(out.host)
+        packed = out.out._replace(count=out.host)
+        parts = host_parts(packed)
+    return unpack_parts(parts, packed)
+
+
+def host_map(out, shape) -> np.ndarray:
+    """A dispatch result's map on the host, cropped to ``shape``, float32
+    (a uint16 fetch dequantized: the span ``fetch.dequant``)."""
+    host = fetch_host(out)[: shape[0], : shape[1], : shape[2]]
+    if host.dtype == np.uint16:  # quantized fetch -> dequantize on the host
+        with tracing.span("fetch.dequant"):
+            host = host.astype(np.float32)
+            host *= np.float32(1.0 / 65535.0)
+    return host
 
 
 class SlidingWindowInferencer:
@@ -476,83 +500,86 @@ class SlidingWindowInferencer:
         """Host-side prep of one case (patch grid, quantize/pad, mask pack) and
         the upload (of this rank's slab only, in slab mode); run it on a
         worker thread to overlap the previous case."""
-        volume = np.asarray(volume, dtype=np.float32)
-        if volume.ndim == 4 and volume.shape[0] == 1:
-            volume = volume[0]
-        if volume.ndim != 3:
-            raise ValueError(f"expected 3D volume, got shape {volume.shape}")
-        shape = volume.shape
-        positions = compute_positions(shape, self.patch_size, self.overlap)
-        n = positions.shape[0]
-        pshape = bucketed_shape(shape, self.patch_size, self.z_bucket)
+        with tracing.span("prepare"):
+            volume = np.asarray(volume, dtype=np.float32)
+            if volume.ndim == 4 and volume.shape[0] == 1:
+                volume = volume[0]
+            if volume.ndim != 3:
+                raise ValueError(f"expected 3D volume, got shape {volume.shape}")
+            shape = volume.shape
+            positions = compute_positions(shape, self.patch_size, self.overlap)
+            n = positions.shape[0]
+            pshape = bucketed_shape(shape, self.patch_size, self.z_bucket)
 
-        slab = 0
-        if self.spatial_shard:
-            # z padded to a multiple of the ranks, with a slab at least one
-            # patch wide so that one ppermute hop covers the halo
-            pz = _round_up(pshape[2], self.n_devices)
-            if pz // self.n_devices >= self.patch_size[2]:
-                pshape = (pshape[0], pshape[1], pz)
-                slab = pz // self.n_devices
+            slab = 0
+            if self.spatial_shard:
+                # z padded to a multiple of the ranks, with a slab at least one
+                # patch wide so that one ppermute hop covers the halo
+                pz = _round_up(pshape[2], self.n_devices)
+                if pz // self.n_devices >= self.patch_size[2]:
+                    pshape = (pshape[0], pshape[1], pz)
+                    slab = pz // self.n_devices
+                else:
+                    import warnings
+
+                    warnings.warn(
+                        f"spatial_shard: padded z extent {pz} gives slab "
+                        f"{pz // self.n_devices} < patch {self.patch_size[2]} on "
+                        f"{self.n_devices} devices; falling back to the "
+                        f"patch-sharded path",
+                        stacklevel=2,
+                    )
+            if slab:
+                pos_padded, weights, chunk = partition_positions_slab(
+                    positions, self.n_devices, slab, self.patch_batch)
+                tail = 0
             else:
-                import warnings
+                # every rank runs the same (chunk, tail) schedule on its share
+                per_dev = -(-max(n, 1) // self.n_devices)
+                chunk, tail, per_dev_pad = choose_chunks(per_dev, self.patch_batch)
+                pos_padded = np.zeros((per_dev_pad * self.n_devices, 3), dtype=np.int32)
+                pos_padded[:n] = positions
+                weights = np.zeros(len(pos_padded), np.float32)
+                weights[:n] = 1.0
 
-                warnings.warn(
-                    f"spatial_shard: padded z extent {pz} gives slab "
-                    f"{pz // self.n_devices} < patch {self.patch_size[2]} on "
-                    f"{self.n_devices} devices; falling back to the "
-                    f"patch-sharded path",
-                    stacklevel=2,
-                )
-        if slab:
-            pos_padded, weights, chunk = partition_positions_slab(
-                positions, self.n_devices, slab, self.patch_batch)
-            tail = 0
-        else:
-            # every rank runs the same (chunk, tail) schedule on its share
-            per_dev = -(-max(n, 1) // self.n_devices)
-            chunk, tail, per_dev_pad = choose_chunks(per_dev, self.patch_batch)
-            pos_padded = np.zeros((per_dev_pad * self.n_devices, 3), dtype=np.int32)
-            pos_padded[:n] = positions
-            weights = np.zeros(len(pos_padded), np.float32)
-            weights[:n] = 1.0
+            region = (slice(0, shape[0]), slice(0, shape[1]), slice(0, shape[2]))
+            vlo = vhi = 0.0
+            with tracing.span("prepare.quantize"):
+                if self.quantize_in:
+                    vol_padded = np.zeros(pshape, dtype=np.uint16)
+                    vlo, vhi = quantize_u16(volume, vol_padded, region)
+                    vol_padded = vol_padded.view(np.int16)
+                else:
+                    vol_padded = np.zeros(pshape, dtype=np.float32)
+                    vol_padded[region] = volume
+            mine = slice(None)
+            if slab:
+                mine = slice(self.mesh.rank * slab, (self.mesh.rank + 1) * slab)
+                vol_padded = np.ascontiguousarray(vol_padded[:, :, mine])
 
-        region = (slice(0, shape[0]), slice(0, shape[1]), slice(0, shape[2]))
-        vlo = vhi = 0.0
-        if self.quantize_in:
-            vol_padded = np.zeros(pshape, dtype=np.uint16)
-            vlo, vhi = quantize_u16(volume, vol_padded, region)
-            vol_padded = vol_padded.view(np.int16)
-        else:
-            vol_padded = np.zeros(pshape, dtype=np.float32)
-            vol_padded[region] = volume
-        mine = slice(None)
-        if slab:
-            mine = slice(self.mesh.rank * slab, (self.mesh.rank + 1) * slab)
-            vol_padded = np.ascontiguousarray(vol_padded[:, :, mine])
-
-        pm = None
-        mask_packed = False
-        if post_mask is not None:
-            pm = np.zeros(pshape, dtype=np.uint8)
-            pm[region] = np.asarray(post_mask) > 0
-            # bit-pack along the last axis when it is byte-aligned; a slab
-            # stays unpacked (a slab boundary could split a byte)
-            if pshape[2] % 8 == 0 and not slab:
-                pm = np.packbits(pm, axis=2, bitorder="little")
-                mask_packed = True
-            pm = torch.from_numpy(np.ascontiguousarray(pm[:, :, mine])).to(
-                self.device, non_blocking=True)
-        # what differs per volume goes up as device data, which the unit's
-        # graph reads from its static buffers
-        up = functools.partial(_upload, device=self.device)
-        return {
-            "volume": up(vol_padded), "shape": shape,
-            "dims": up(np.asarray(shape, np.int32)),
-            "vrange": up(np.asarray([vlo, vhi], np.float32)),
-            "positions": up(pos_padded.astype(np.int64)), "weights": up(weights),
-            "chunks": (chunk, tail), "post_mask": pm, "mask_packed": mask_packed, "slab": slab,
-        }
+            pm = None
+            mask_packed = False
+            if post_mask is not None:
+                pm = np.zeros(pshape, dtype=np.uint8)
+                pm[region] = np.asarray(post_mask) > 0
+                # bit-pack along the last axis when it is byte-aligned; a slab
+                # stays unpacked (a slab boundary could split a byte)
+                if pshape[2] % 8 == 0 and not slab:
+                    pm = np.packbits(pm, axis=2, bitorder="little")
+                    mask_packed = True
+                pm = pm[:, :, mine]
+            # what differs per volume goes up as device data, which the unit's
+            # graph reads from its static buffers
+            up = functools.partial(_upload, device=self.device)
+            with tracing.span("prepare.upload"):
+                return {
+                    "volume": up(vol_padded), "shape": shape,
+                    "dims": up(np.asarray(shape, np.int32)),
+                    "vrange": up(np.asarray([vlo, vhi], np.float32)),
+                    "positions": up(pos_padded.astype(np.int64)), "weights": up(weights),
+                    "chunks": (chunk, tail), "post_mask": None if pm is None else up(pm),
+                    "mask_packed": mask_packed, "slab": slab,
+                }
 
     def sparse_cap(self, padded_shape) -> int:
         """The block-sparse fetch's tile capacity (0: a dense fetch)."""
@@ -588,16 +615,17 @@ class SlidingWindowInferencer:
         replay on a card, no host sync); returns (out, orig_shape) where
         ``out`` is the padded map (or a SparsePack) still on the device, or
         in slab mode a ``SlabShards``."""
-        key, fn, inputs = self.unit(prep)
-        parts = run_unit(self.graphs, key, fn, *inputs)
-        if prep["slab"]:
-            return SlabShards(parts[0], self.mesh), prep["shape"]
-        out = as_result(parts, self.sparse_cap(prep["volume"].shape), self.sparse_block)
-        # on a mesh every rank holds the map; the first one fetches it
-        fetches = self.mesh is None or self.mesh.is_root
-        if self.host_prefetch and fetches and self.device.type == "cuda":
-            out = start_host_copy(out)
-        return out, prep["shape"]
+        with tracing.span("dispatch"):
+            key, fn, inputs = self.unit(prep)
+            parts = run_unit(self.graphs, key, fn, *inputs)
+            if prep["slab"]:
+                return SlabShards(parts[0], self.mesh), prep["shape"]
+            out = as_result(parts, self.sparse_cap(prep["volume"].shape), self.sparse_block)
+            # on a mesh every rank holds the map; the first one fetches it
+            fetches = self.mesh is None or self.mesh.is_root
+            if self.host_prefetch and fetches and self.device.type == "cuda":
+                out = start_host_copy(out)
+            return out, prep["shape"]
 
     @staticmethod
     def fetch(dispatched) -> Optional[np.ndarray]:
@@ -605,15 +633,12 @@ class SlidingWindowInferencer:
         rank must call it, and the mesh's first rank gets the map (None
         elsewhere)."""
         out, shape = dispatched
-        if isinstance(out, SlabShards):
-            out = out.gather()
-            if out is None:
-                return None
-        host = fetch_host(out)[: shape[0], : shape[1], : shape[2]]
-        if host.dtype == np.uint16:  # quantized fetch -> dequantize on the host
-            host = host.astype(np.float32)
-            host *= np.float32(1.0 / 65535.0)
-        return host
+        with tracing.span("fetch"):
+            if isinstance(out, SlabShards):
+                out = out.gather()
+                if out is None:
+                    return None
+            return host_map(out, shape)
 
     def __call__(self, volume: np.ndarray, post_mask: Optional[np.ndarray] = None):
         """volume [D, H, W] -> probability map [D, H, W] float32 on the host."""

@@ -16,6 +16,8 @@ from typing import Any, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from light_unet_tpu_torch.utils import tracing
+
 
 class SparsePack(NamedTuple):
     """Block-sparse dispatch result: ``dense`` stays on the device (fetched
@@ -109,19 +111,36 @@ def unpack_blocks(idx: np.ndarray, tiles: np.ndarray, padded_shape: Sequence[int
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Host copy; int16 tensors carry uint16 bits (see ``sliding_window.quantize_out``)."""
+    """Host copy; int16 tensors carry uint16 bits (see ``sliding_window.quantize_out``).
+    Counts ``fetch.bytes``."""
     a = t.cpu().numpy()
+    tracing.count("fetch.bytes", a.nbytes)
     return a.view(np.uint16) if a.dtype == np.int16 else a
 
 
-def fetch_maybe_sparse(out) -> np.ndarray:
-    """Materialize a dispatch result (dense tensor or SparsePack) on the host —
-    bit-identical either way."""
+def host_parts(out):
+    """A dispatch result's bytes on the host: the dense map, or for a
+    SparsePack within its cap the occupied bucket's ``(idx, tiles)``."""
     if isinstance(out, SparsePack):
         n = int(out.count)
         if n > out.cap:
             return to_numpy(out.dense)  # exact overflow -> dense fallback
         b = slice_bucket(n, out.cap)
-        return unpack_blocks(
-            to_numpy(out.idx[:b]), to_numpy(out.tiles[:b]), out.dense.shape, out.block)
+        return to_numpy(out.idx[:b]), to_numpy(out.tiles[:b])
     return to_numpy(out)
+
+
+def unpack_parts(parts, out) -> np.ndarray:
+    """The dense map of ``host_parts(out)`` (span ``fetch.unpack`` when packed)."""
+    if not isinstance(parts, tuple):
+        return parts
+    with tracing.span("fetch.unpack"):
+        return unpack_blocks(*parts, out.dense.shape, out.block)
+
+
+def fetch_maybe_sparse(out) -> np.ndarray:
+    """Materialize a dispatch result (dense tensor or SparsePack) on the host —
+    bit-identical either way.  The copies are the span ``fetch.sync``."""
+    with tracing.span("fetch.sync"):
+        parts = host_parts(out)
+    return unpack_parts(parts, out)

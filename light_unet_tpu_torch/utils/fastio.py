@@ -33,7 +33,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 from light_unet_tpu_torch.ops import _build
-from light_unet_tpu_torch.utils import nifti
+from light_unet_tpu_torch.utils import nifti, tracing
 
 ERRORS = {-1: "cannot open", -2: "corrupt gzip stream", -3: "bad header", -4: "unsupported dtype",
           -5: "truncated", -6: "allocation failed", -7: "non-finite values"}
@@ -119,19 +119,21 @@ def _load_plain(path) -> Tuple[np.ndarray, nifti.Nifti1Header]:
 
 def load_f32(path) -> Tuple[np.ndarray, nifti.Nifti1Header]:
     """Decode one NIfTI volume to float32 with scl scaling applied (nibabel
-    ``get_fdata`` semantics), in the codec's Fortran layout."""
-    hdr = read_header(path)
-    if hdr.endian != "<":
-        return _load_plain(path)
-    shape, n = _voxel_count(path, hdr)
-    out = np.empty(n, dtype=np.float32)
-    hbuf = (ctypes.c_uint8 * nifti.HEADER_SIZE)()
-    rc = load_library().fastio_decode(os.fsencode(path), out.ctypes.data_as(ctypes.c_void_p),
-                                      n, hbuf)
-    _count("decode")
-    if rc != n:
-        raise _error(path, "decode", rc)
-    return out.reshape(shape, order="F"), hdr
+    ``get_fdata`` semantics), in the codec's Fortran layout (the span
+    ``decode``)."""
+    with tracing.span("decode"):
+        hdr = read_header(path)
+        if hdr.endian != "<":
+            return _load_plain(path)
+        shape, n = _voxel_count(path, hdr)
+        out = np.empty(n, dtype=np.float32)
+        hbuf = (ctypes.c_uint8 * nifti.HEADER_SIZE)()
+        rc = load_library().fastio_decode(os.fsencode(path),
+                                          out.ctypes.data_as(ctypes.c_void_p), n, hbuf)
+        _count("decode")
+        if rc != n:
+            raise _error(path, "decode", rc)
+        return out.reshape(shape, order="F"), hdr
 
 
 def load_batch_f32(paths: Sequence, n_threads: int = 0

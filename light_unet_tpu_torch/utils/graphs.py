@@ -67,6 +67,8 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from light_unet_tpu_torch.utils import tracing
+
 # modules whose ``launches`` counter a replay advances by what its capture recorded
 LAUNCH_COUNTERS = ("light_unet_tpu_torch.ops.block_kernel", "light_unet_tpu_torch.ops.norm_kernel",
                    "light_unet_tpu_torch.ops.ccl_kernel")
@@ -203,6 +205,17 @@ class GraphRunner:
         return first
 
 
+def counters() -> Dict[str, int]:
+    """``replays.<runner>`` (over the live runners) and ``capture.<runner>``
+    (over ``captures``) by runner name."""
+    out: Dict[str, int] = {}
+    for runner in list(_runners):
+        out[f"replays.{runner.name}"] = out.get(f"replays.{runner.name}", 0) + runner.replays
+    for c in captures:
+        out[f"capture.{c.runner}"] = out.get(f"capture.{c.runner}", 0) + 1
+    return out
+
+
 def release() -> None:
     """Destroy the graphs of every live runner (each captures again at its
     next use).  An NCCL communicator must outlive the graphs that captured
@@ -233,11 +246,13 @@ def run_unit(runner: Optional["GraphRunner"], key: tuple, fn: Callable,
     """``fn(*inputs)`` as a tuple of tensors the caller owns: eagerly without
     a runner (the CPU, ``graphs=False``, a gloo mesh), else one replay of the
     key's graph, its outputs copied out of the static buffers that the
-    runner's next replay overwrites."""
-    if runner is None:
-        return _as_tuple(fn(*inputs))
-    key = key + (tuple((tuple(x.shape), x.dtype) for x in inputs),)
-    return tuple(t.clone() for t in runner(key, fn, *inputs))
+    runner's next replay overwrites.  Either is the span ``replay`` with the
+    unit's name (``key[0]``)."""
+    with tracing.span("replay", unit=key[0]):
+        if runner is None:
+            return _as_tuple(fn(*inputs))
+        key = key + (tuple((tuple(x.shape), x.dtype) for x in inputs),)
+        return tuple(t.clone() for t in runner(key, fn, *inputs))
 
 
 def runner_for(device: torch.device, requested: bool, what: str, mesh=None,

@@ -28,6 +28,8 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
+from light_unet_tpu_torch.utils import tracing
+
 HEADER_SIZE = 348
 DEFAULT_VOX_OFFSET = 352
 
@@ -316,24 +318,30 @@ def save(
     1-core host gzip level 9 costs seconds per whole-body f32 volume for a
     few percent smaller files (measured: the rehearsal's inference stage
     spent most of its per-case wall in level-9 deflate).
+
+    Spans: ``write.map``, with ``write.serialize`` (header and F-order
+    bytes) and ``write.deflate`` (the gzip write, or the plain one).
     """
     path = Path(path)
-    hdr = img.header
-    buf = hdr.to_bytes()
-    # force single-file magic + standard offset
-    buf[344:348] = b"n+1\x00"
-    struct.pack_into(hdr.endian + "f", buf, 108, float(DEFAULT_VOX_OFFSET))
-    payload = bytes(buf) + b"\x00" * (DEFAULT_VOX_OFFSET - HEADER_SIZE)
-    data = np.asarray(img.dataobj)
-    if hdr.endian == ">":
-        data = data.astype(data.dtype.newbyteorder(">"))
-    payload += data.tobytes(order="F")
-    if str(path).endswith(".gz"):
-        # mtime=0 keeps output byte-stable across runs
-        with open(path, "wb") as raw:
-            with gzip.GzipFile(
-                fileobj=raw, mode="wb", mtime=0, compresslevel=compresslevel
-            ) as f:
-                f.write(payload)
-    else:
-        path.write_bytes(payload)
+    with tracing.span("write.map"):
+        with tracing.span("write.serialize"):
+            hdr = img.header
+            buf = hdr.to_bytes()
+            # force single-file magic + standard offset
+            buf[344:348] = b"n+1\x00"
+            struct.pack_into(hdr.endian + "f", buf, 108, float(DEFAULT_VOX_OFFSET))
+            payload = bytes(buf) + b"\x00" * (DEFAULT_VOX_OFFSET - HEADER_SIZE)
+            data = np.asarray(img.dataobj)
+            if hdr.endian == ">":
+                data = data.astype(data.dtype.newbyteorder(">"))
+            payload += data.tobytes(order="F")
+        with tracing.span("write.deflate"):
+            if str(path).endswith(".gz"):
+                # mtime=0 keeps output byte-stable across runs
+                with open(path, "wb") as raw:
+                    with gzip.GzipFile(
+                        fileobj=raw, mode="wb", mtime=0, compresslevel=compresslevel
+                    ) as f:
+                        f.write(payload)
+            else:
+                path.write_bytes(payload)
