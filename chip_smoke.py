@@ -23,6 +23,12 @@ Phases:
    (f32 <= 5e-5, bf16 <= 2e-2, relative to max(|ref|, 1)) and timed, with
    the device time of each of its three launches (conv1, conv2, out) from
    torch.profiler and the tile each conv launch took;
+4b. the depthwise 3x3x3 kernel at the 16 depthwise convs of a 48^3 forward,
+   B = 192 in bf16 (within one bf16 unit in the last place of its plain
+   version beyond the float32 order term, ``depthwise_kernel.gap_ulps``; two
+   calls bit-identical) and B = 16 in f32 (within the order term), timed (CUDA events)
+   beside its plain version (``F.conv3d(groups=C)``, cuDNN) and cuDNN on a
+   channels-first copy, with its byte and FMA bounds;
 5. raw -> preprocess: 4 raw SUV-like 144x144x272 phantoms with labels at
    4 mm (body ellipsoid with cold pockets, a scanner bed, air specks, hot
    spheres; seeded) go through the port's
@@ -546,6 +552,58 @@ def block_phase(model, batch: int, bar: float, gen, timed: bool):
     return rows, max_err
 
 
+# (side, C) of the 16 depthwise convs of a 48^3 forward, in forward order
+DEPTHWISE = [(48, 1), (48, 16), (24, 16), (24, 32), (12, 32), (12, 64), (6, 64), (6, 128),
+             (6, 128), (6, 128), (12, 128), (12, 64), (24, 64), (24, 32), (48, 32), (48, 16)]
+
+
+def depthwise_phase(batch: int, dtype, gen, timed: bool):
+    """The depthwise kernel against its plain version at the 16 depthwise
+    convs of a 48^3 forward; returns per-conv rows, the largest absolute
+    error and the largest gap in bf16 ulps beyond the float32 order term
+    (0 in float32, which is held to the order term itself)."""
+    import torch
+    import torch.nn.functional as F
+
+    from light_unet_tpu_torch.ops import depthwise_kernel as dk
+
+    rows, worst, worst_ulps = [], 0.0, 0.0
+    for side, c in DEPTHWISE:
+        x = torch.randn((batch, side, side, side, c), generator=gen, device="cuda").to(dtype)
+        w = (torch.rand((c, 1, 3, 3, 3), generator=gen, device="cuda") * 2 - 1) / 27 ** 0.5
+        got, again = dk.depthwise_conv3d(x, w), dk.depthwise_conv3d(x, w)
+        want = dk.reference_depthwise_conv3d(x, w)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"depthwise kernel {side}^3x{c}: two calls differ")
+        err = (got.float() - want.float()).abs().max().item()
+        if dtype == torch.bfloat16:
+            ulps = dk.gap_ulps(got, want, x, w)
+            bad = ulps > 1.0
+        else:
+            ulps = 0.0
+            bad = not bool(((got - want).abs() <= dk.order_bound(x, w)).all())
+        if bad:
+            raise AssertionError(f"depthwise kernel {side}^3x{c} {dtype} B={batch}: abs {err}, "
+                                 f"{ulps} bf16 ulps beyond the order term")
+        worst, worst_ulps = max(worst, err), max(worst_ulps, ulps)
+        if timed:
+            ms = cuda_ms(lambda: dk.depthwise_conv3d(x, w))
+            plain_ms = cuda_ms(lambda: dk.reference_depthwise_conv3d(x, w))
+            xc, wc = x.permute(0, 4, 1, 2, 3).contiguous(), w.to(dtype)
+            library_ms = cuda_ms(lambda: F.conv3d(xc, wc, None, 1, 1, 1, c))
+            bytes_ms = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * 27 * x.numel() / F32_FLOPS * 1e3
+            rows.append(dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bytes_ms=bytes_ms, ops_ms=ops_ms))
+            log(f"  depthwise {side}^3x{c} bf16 B={batch}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, cuDNN channels-first {library_ms:.4f} ms, bounds bytes "
+                f"{bytes_ms:.4f} / FMA {ops_ms:.4f} ms")
+            del xc
+        del x, got, again, want
+    return rows, worst, worst_ulps
+
+
 def write_raw_cases(raw_dir: Path, seed: int, ids=None, shape=SERVING_SHAPE) -> list:
     """Raw whole-body PET phantoms of ``shape`` at 4 mm with lesion labels,
     seeded (ids 0001-0004 unless given):
@@ -834,9 +892,12 @@ def check_gates(counts: dict, what: str) -> None:
     if counts["use_pallas"]["norm"] == 0:
         raise AssertionError(f"use_pallas {what} did not go through the norm kernel: "
                              f"{counts['use_pallas']}")
-    if {k: v for k, v in counts["plain"].items() if k != "ccl"} != dict(block=0, plain_block=0,
-                                                                          norm=0):
-        raise AssertionError(f"plain {what} launched a kernel: {counts['plain']}")
+    if {k: v for k, v in counts["plain"].items() if k not in ("ccl", "dw")} != dict(
+            block=0, plain_block=0, norm=0):
+        raise AssertionError(f"plain {what} launched a block or norm kernel: {counts['plain']}")
+    if counts["fused_block"]["dw"] != 0 or not (counts["plain"]["dw"] and counts["use_pallas"]["dw"]):
+        raise AssertionError(f"{what}: the depthwise kernel must launch on the plain and use_pallas "
+                             f"routes and not on fused_block: {counts}")
     if not all(c["ccl"] for c in counts.values()):
         raise AssertionError(f"a {what} did not go through the CCL kernel: {counts}")
 
@@ -1237,29 +1298,30 @@ def profile_steps(trainer, chains: int = 5) -> None:
 
 def count_launches(trainer) -> tuple:
     """Wrap ``trainer.train_epoch`` and ``trainer.validate`` so that each
-    call adds its norm- and block-kernel launches (and, in training, the
-    plain block's calls; in validation, the CCL kernel's) to the returned
+    call adds its norm-, block- and depthwise-kernel launches (and, in
+    training, the plain block's calls; in validation, the CCL kernel's) to the returned
     counts and its seconds, between two synchronizations, to the returned
     lists."""
     import torch
 
-    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, norm_kernel
+    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, depthwise_kernel, norm_kernel
 
-    launches = {"train": dict(norm=0, block=0, plain_block=0),
-                "val": dict(norm=0, block=0, ccl=0)}
+    launches = {"train": dict(norm=0, block=0, plain_block=0, dw=0),
+                "val": dict(norm=0, block=0, ccl=0, dw=0)}
     epoch_s, val_s = [], []
 
     def counted(fn, where, seconds):
         def run(epoch):
             torch.cuda.synchronize()
             n = (norm_kernel.launches, block_kernel.launches, block_kernel.plain_calls,
-                 ccl_kernel.launches)
+                 ccl_kernel.launches, depthwise_kernel.launches)
             t = time.perf_counter()
             out = fn(epoch)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t)
             launches[where]["norm"] += norm_kernel.launches - n[0]
             launches[where]["block"] += block_kernel.launches - n[1]
+            launches[where]["dw"] += depthwise_kernel.launches - n[4]
             if where == "train":
                 launches[where]["plain_block"] += block_kernel.plain_calls - n[2]
             else:
@@ -1315,7 +1377,7 @@ def check_graphs(trainer, steps: int) -> None:
 
 def train_phase(tmp: Path, data_dir: Path, ids: list, smi: str, profile: bool = False) -> tuple:
     """The port ``Trainer`` on the card; returns (best model path, val split,
-    kernel launches in validation: norm, block, ccl)."""
+    kernel launches in validation: norm, block, ccl, dw)."""
     import torch
 
     from light_unet_tpu_torch.config import Config
@@ -1355,10 +1417,11 @@ def train_phase(tmp: Path, data_dir: Path, ids: list, smi: str, profile: bool = 
     check_graphs(trainer, steps)
     if not np.isfinite(hist["train_loss"]).all() or len(hist["train_loss"]) != 2:
         raise AssertionError(f"training losses not finite: {hist['train_loss']}")
-    if launches["train"] != dict(norm=0, block=0, plain_block=0):
+    if launches["train"] != dict(norm=0, block=0, plain_block=0, dw=0):
         raise AssertionError(f"a fused kernel ran inside the training steps: {launches['train']}")
-    if launches["val"]["norm"] == 0:
-        raise AssertionError("validation did not go through the norm kernel")
+    if launches["val"]["norm"] == 0 or launches["val"]["dw"] == 0:
+        raise AssertionError(f"validation did not go through the norm and depthwise kernels: "
+                             f"{launches['val']}")
     changed = sum(not torch.equal(v, trainer.model.state_dict()[k]) for k, v in before.items())
     if changed < len(before) // 2:
         raise AssertionError(f"only {changed}/{len(before)} parameter tensors changed")
@@ -1394,7 +1457,7 @@ def evaluate_phase(tmp: Path, data_dir: Path, best: Path, split: Path, smi: str)
     import torch
 
     from light_unet_tpu_torch.config import Config
-    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, norm_kernel
+    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, depthwise_kernel, norm_kernel
     from light_unet_tpu_torch.ops.val_metrics import DeviceValidationSweep
     from light_unet_tpu_torch.core.inferencer import Inferencer
     from light_unet_tpu_torch.pipeline.evaluate import (
@@ -1407,11 +1470,12 @@ def evaluate_phase(tmp: Path, data_dir: Path, best: Path, split: Path, smi: str)
     work = tmp / "evaluate"
     cases = split.read_text().split()
     block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
-    ccl_kernel.launches = 0
+    ccl_kernel.launches = depthwise_kernel.launches = 0
     inf = Inferencer(SERVING, best, workdir=str(work), device="cuda")
     result = inf.infer_split(split, data_dir)
     served = dict(block=block_kernel.launches, plain_block=block_kernel.plain_calls,
-                  norm=norm_kernel.launches, ccl=ccl_kernel.launches)
+                  norm=norm_kernel.launches, ccl=ccl_kernel.launches,
+                  dw=depthwise_kernel.launches)
     if result["failed"] or result["successful"] != len(cases) or served["block"] == 0:
         raise AssertionError(f"serving the trained model failed: {result}, launches {served}")
     cfg = Config.from_dict(SERVING)
@@ -1485,7 +1549,7 @@ def mixed_phase(tmp: Path, data_dir: Path, fl_ids: list, smi: str) -> dict:
     epoch + validation through ``Trainer.train``, then resume), run B
     (``probabilistic``, one epoch through ``Trainer.train_epoch``), one
     float32 DLBCL step against the CPU.  Returns the kernel launches of run
-    A's validation (norm, block, ccl)."""
+    A's validation (norm, block, ccl, dw)."""
     import torch
 
     from light_unet_tpu_torch.config import Config
@@ -1555,7 +1619,8 @@ def mixed_phase(tmp: Path, data_dir: Path, fl_ids: list, smi: str) -> dict:
         raise AssertionError(f"steps FL {n_fl} DLBCL {n_dl}, want {fl_batches} and {want_dlbcl}")
     if not all(np.isfinite(v).all() for v in losses) or result["skipped_steps_total"]:
         raise AssertionError(f"mixed losses not finite ({result['skipped_steps_total']} skipped)")
-    if launches["train"] != dict(norm=0, block=0, plain_block=0) or launches["val"]["norm"] == 0:
+    if (launches["train"] != dict(norm=0, block=0, plain_block=0, dw=0)
+            or launches["val"]["norm"] == 0 or launches["val"]["dw"] == 0):
         raise AssertionError(f"kernel launches: training {launches['train']}, "
                              f"validation {launches['val']}")
     log_graphs(trainer.graphs, "run A training (both domains)")
@@ -2233,7 +2298,7 @@ def bucket_route(name: str, gates: dict, dtype: str, state: dict, model_path: Pa
 
     from light_unet_tpu_torch.config import Config
     from light_unet_tpu_torch.core.inferencer import Inferencer
-    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, norm_kernel
+    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, depthwise_kernel, norm_kernel
     from light_unet_tpu_torch.utils import graphs, nifti
     from light_unet_tpu_torch.utils.hbm_ledger import HbmLedger
 
@@ -2247,7 +2312,7 @@ def bucket_route(name: str, gates: dict, dtype: str, state: dict, model_path: Pa
     torch.cuda.reset_peak_memory_stats()
     first = len(graphs.captures)
     block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
-    ccl_kernel.launches = 0
+    ccl_kernel.launches = depthwise_kernel.launches = 0
     ledger = HbmLedger(device="cuda")
     t_route = time.perf_counter()
 
@@ -2305,7 +2370,8 @@ def bucket_route(name: str, gates: dict, dtype: str, state: dict, model_path: Pa
     if not all(reordered + fused_reordered) or not (eager_same and fused_eager):
         raise AssertionError(f"{name}: a replay order or the eager path changed a result")
     launches = dict(block=block_kernel.launches, plain_block=block_kernel.plain_calls,
-                    norm=norm_kernel.launches, ccl=ccl_kernel.launches)
+                    norm=norm_kernel.launches, ccl=ccl_kernel.launches,
+                    dw=depthwise_kernel.launches)
 
     # (d) what each key cost, and what releasing the route gives back
     log_captures(graphs.captures[first:], name)
@@ -2464,7 +2530,8 @@ def buckets_phase(tmp: Path, state: dict, model_path: Path, smi: str) -> dict:
         f"{gib(torch.cuda.get_device_properties(0).total_memory)} GiB; phase 14 "
         f"{time.perf_counter() - t0:.1f} s on {smi}")
     return dict(block=launches["fused_block"]["block"], norm=launches["use_pallas"]["norm"],
-                ccl=preprocess_ccl + sum(c["ccl"] for c in launches.values()))
+                ccl=preprocess_ccl + sum(c["ccl"] for c in launches.values()),
+                dw=sum(c["dw"] for c in launches.values()))
 
 
 def free_port() -> int:
@@ -2622,7 +2689,7 @@ def multirank_rank(rank: int, n: int, init: str, work: str, plan: dict) -> None:
     from light_unet_tpu_torch.config import Config
     from light_unet_tpu_torch.core.inferencer import Inferencer
     from light_unet_tpu_torch.core.trainer import Trainer
-    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, norm_kernel
+    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, depthwise_kernel, norm_kernel
     from light_unet_tpu_torch.parallel import distributed
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2640,6 +2707,7 @@ def multirank_rank(rank: int, n: int, init: str, work: str, plan: dict) -> None:
             inf = Inferencer(cfg, plan["model"], workdir=str(work / f"{name}_r{rank}"),
                              device=device)
             block_kernel.launches = block_kernel.plain_calls = ccl_kernel.launches = 0
+            depthwise_kernel.launches = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -2647,7 +2715,7 @@ def multirank_rank(rank: int, n: int, init: str, work: str, plan: dict) -> None:
             torch.cuda.synchronize()
             out[name] = dict(seconds=time.perf_counter() - t0, ok=res["successful"],
                              slab=bool(inf.sw.spatial_shard), block=block_kernel.launches,
-                             ccl=ccl_kernel.launches,
+                             ccl=ccl_kernel.launches, dw=depthwise_kernel.launches,
                              plain_block=block_kernel.plain_calls,
                              peak=torch.cuda.max_memory_allocated())
             del inf
@@ -2661,20 +2729,21 @@ def multirank_rank(rank: int, n: int, init: str, work: str, plan: dict) -> None:
         tr._step_on_batch(units.pop(0))  # first launches, allocator
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        norm_kernel.launches = block_kernel.launches = 0
+        norm_kernel.launches = block_kernel.launches = depthwise_kernel.launches = 0
         t0 = time.perf_counter()
         losses = tr._flatten_losses([tr._step_on_batch(u) for u in units])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        step_launches = dict(norm=norm_kernel.launches, block=block_kernel.launches)
-        norm_kernel.launches = ccl_kernel.launches = 0
+        step_launches = dict(norm=norm_kernel.launches, block=block_kernel.launches,
+                             dw=depthwise_kernel.launches)
+        norm_kernel.launches = ccl_kernel.launches = depthwise_kernel.launches = 0
         t1 = time.perf_counter()
         val_loss, metrics = tr.validate(0)
         torch.cuda.synchronize()
         out["train"] = dict(
             steps=len(losses) + 4, ms_per_step=seconds / len(losses) * 1e3, losses=losses,
             step_launches=step_launches, val_norm=norm_kernel.launches,
-            val_ccl=ccl_kernel.launches,
+            val_ccl=ccl_kernel.launches, val_dw=depthwise_kernel.launches,
             val_s=time.perf_counter() - t1, val_loss=val_loss, recall=metrics["best_recall"],
             peak=torch.cuda.max_memory_allocated(), rows=int(tr.corpus.images.shape[0]),
             global_batch=tr.global_batch, replays=tr.graphs.replays if tr.graphs else 0)
@@ -2795,8 +2864,8 @@ def multirank_phase(tmp: Path, data_dir: Path, case_id: str, model_path: Path, b
         raise AssertionError(f"{backend} ranks replayed {[t['replays'] for t in trains]} units")
     if (any(t["losses"] != trains[0]["losses"] for t in trains)
             or not np.isfinite(trains[0]["losses"]).all()
-            or any(t["step_launches"] != dict(norm=0, block=0) or t["val_norm"] == 0
-                   for t in trains)):
+            or any(t["step_launches"] != dict(norm=0, block=0, dw=0) or t["val_norm"] == 0
+                   or t["val_dw"] == 0 for t in trains)):
         raise AssertionError(f"data-parallel training: {trains}")
     if not same or any(g["f32_losses"] != got[0]["f32_losses"] for g in got):
         raise AssertionError("the ranks' parameters or float32 losses differ")
@@ -2805,7 +2874,9 @@ def multirank_phase(tmp: Path, data_dir: Path, case_id: str, model_path: Path, b
     return dict(block=sum(g[name]["block"] for g in got for name, _ in MULTIRANK_SERVING),
                 norm=sum(t["val_norm"] for t in trains),
                 ccl=sum(g[name]["ccl"] for g in got for name, _ in MULTIRANK_SERVING)
-                + sum(t["val_ccl"] for t in trains))
+                + sum(t["val_ccl"] for t in trains),
+                dw=sum(g[name]["dw"] for g in got for name, _ in MULTIRANK_SERVING)
+                + sum(t["val_dw"] for t in trains))
 
 
 TORCHRUN_IDS = [f"{i:04d}" for i in range(31, 37)]
@@ -2874,7 +2945,7 @@ def cli_rank(out_dir: str, argv: list) -> int:
     import torch
 
     from light_unet_tpu_torch import cli
-    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, norm_kernel
+    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, depthwise_kernel, norm_kernel
 
     written = set()
 
@@ -2907,7 +2978,8 @@ def cli_rank(out_dir: str, argv: list) -> int:
         device_name=torch.cuda.get_device_name(record["device"]) if cuda else "cpu",
         peak_gib=torch.cuda.max_memory_allocated(record["device"]) / 2**30 if cuda else 0.0,
         launches=dict(norm=norm_kernel.launches, block=block_kernel.launches,
-                      plain_block=block_kernel.plain_calls, ccl=ccl_kernel.launches),
+                      plain_block=block_kernel.plain_calls, ccl=ccl_kernel.launches,
+                      dw=depthwise_kernel.launches),
         written=sorted(written))
     Path(out_dir, f"rank_{record['rank']}.json").write_text(json.dumps(record))
     return record["rc"]
@@ -3025,7 +3097,7 @@ def torchrun_phase(tmp: Path, smi: str) -> int:
 
     from light_unet_tpu_torch import cli
     from light_unet_tpu_torch.config import Config
-    from light_unet_tpu_torch.ops import ccl_kernel, norm_kernel
+    from light_unet_tpu_torch.ops import ccl_kernel, depthwise_kernel, norm_kernel
     from light_unet_tpu_torch.utils import graphs
 
     n = torch.cuda.device_count()
@@ -3048,7 +3120,7 @@ def torchrun_phase(tmp: Path, smi: str) -> int:
     undo = instrument_cli(record)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    norm_kernel.launches = ccl_kernel.launches = 0
+    norm_kernel.launches = ccl_kernel.launches = depthwise_kernel.launches = 0
     try:
         t0 = time.perf_counter()
         rc = cli.run(argv("one"))
@@ -3056,7 +3128,7 @@ def torchrun_phase(tmp: Path, smi: str) -> int:
     finally:
         undo()
         torch.backends.cudnn.deterministic = deterministic
-    one_norm, one_ccl = norm_kernel.launches, ccl_kernel.launches
+    one_norm, one_ccl, one_dw = norm_kernel.launches, ccl_kernel.launches, depthwise_kernel.launches
     if rc != 0 or one_norm == 0:
         raise AssertionError(f"in-process --mode all: rc {rc}, norm-kernel launches {one_norm}")
     log(f"  (i) in-process --mode all, one card: {one_s:.1f} s; s per stage "
@@ -3106,7 +3178,8 @@ def torchrun_phase(tmp: Path, smi: str) -> int:
         f"{', bbox JSONs and evaluate counts equal' if n == 1 else ''}; ranks 1..{n - 1} wrote "
         f"no artifact file; on {smi}")
     return dict(norm=one_norm + job_norm,
-                ccl=one_ccl + sum(r["launches"]["ccl"] for r in ranks))
+                ccl=one_ccl + sum(r["launches"]["ccl"] for r in ranks),
+                dw=one_dw + sum(r["launches"]["dw"] for r in ranks))
 
 
 BENCH_KEYS_FROM = REPO / "BENCH_r05.json"  # the JAX bench's line (its ``parsed``)
@@ -3194,8 +3267,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 2
     from light_unet_tpu_torch.models.unet3d import build_model, init_weights
-    from light_unet_tpu_torch.ops import _build, block_kernel, ccl_kernel, norm_kernel
-    from light_unet_tpu_torch.utils import fastio
+    from light_unet_tpu_torch.ops import _build, block_kernel, ccl_kernel, depthwise_kernel, norm_kernel
+    from light_unet_tpu_torch.utils import fastio, tracing
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3248,6 +3321,13 @@ def main(argv=None) -> int:
     block_rows, block_err = block_phase(model, batch, 2e-2, gen, timed=not args.quick)
     _, block_err32 = block_phase(model32, 4 if args.quick else 16, 5e-5, gen, timed=False)
     log(f"  max abs err: bf16 {block_err:.3e}, f32 {block_err32:.3e}")
+
+    # 4b. the depthwise kernel
+    log(f"[depthwise kernel] bf16 B={batch}")
+    dw_rows, dw_err, dw_ulps = depthwise_phase(batch, torch.bfloat16, gen, timed=not args.quick)
+    _, dw_err32, _ = depthwise_phase(4 if args.quick else 16, torch.float32, gen, timed=False)
+    log(f"  max abs err: bf16 {dw_err:.3e} ({dw_ulps:.3f} bf16 ulps beyond the float32 order "
+        f"term), f32 {dw_err32:.3e}")
     log(f"[clocks] after the kernel phases: {nvidia_smi_clocks()}")
     if args.quick:
         log(f"[quick] kernels built and checked in {time.perf_counter() - t_start:.1f} s")
@@ -3275,12 +3355,13 @@ def main(argv=None) -> int:
             cfg = json.loads(json.dumps(SERVING))
             cfg["tpu"].update(gates)
             block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
-            ccl_kernel.launches = 0
+            ccl_kernel.launches = depthwise_kernel.launches = 0
             decodes = fastio.calls["decode"]
             vps, maps = serve(cfg, model_path, data_dir, split, tmp / name,
                               profile=args.profile and name == "fused_block")
             counts[name] = dict(block=block_kernel.launches, plain_block=block_kernel.plain_calls,
-                                norm=norm_kernel.launches, ccl=ccl_kernel.launches)
+                                norm=norm_kernel.launches, ccl=ccl_kernel.launches,
+                                dw=depthwise_kernel.launches)
             runs[name] = maps
             decodes = fastio.calls["decode"] - decodes
             if decodes != 2 * N_CASES:
@@ -3288,8 +3369,11 @@ def main(argv=None) -> int:
                                      f"not {2 * N_CASES}")
             if name == "fused_block":
                 serving_vps = vps
+            snap = tracing.snapshot()
             log(f"  {name}: {vps:.3f} vol/s on {smi}; launches {counts[name]}; "
-                f"{decodes} native decodes (image + body mask per case)")
+                f"{decodes} native decodes (image + body mask per case); snapshot(): "
+                f"depthwise_kernel.launches {snap['depthwise_kernel.launches']}, "
+                f".plain_calls {snap['depthwise_kernel.plain_calls']}")
             if name == "fused_block":
                 serving_phases(cfg, model_path, data_dir, split.read_text().split()[0],
                                tmp / "serving_split")
@@ -3305,13 +3389,14 @@ def main(argv=None) -> int:
             for k, v in gates.items():
                 setattr(cfg.tpu, k, v)
             block_kernel.launches = block_kernel.plain_calls = norm_kernel.launches = 0
-            ccl_kernel.launches = 0
+            ccl_kernel.launches = depthwise_kernel.launches = 0
             calls = dict(fastio.calls)
             vps, peak, maps, preps, pipe = fused_run(
                 cfg, state, raw_paths, profile=args.profile and name == "fused_block")
             fused_counts[name] = dict(block=block_kernel.launches,
                                       plain_block=block_kernel.plain_calls,
-                                      norm=norm_kernel.launches, ccl=ccl_kernel.launches)
+                                      norm=norm_kernel.launches, ccl=ccl_kernel.launches,
+                                      dw=depthwise_kernel.launches)
             native = {k: fastio.calls[k] - calls[k] for k in calls}
             if native != dict(decode=N_CASES, order_stats=N_CASES, quantize_pad=N_CASES):
                 raise AssertionError(f"{name} fused pipeline: host library calls {native}")
@@ -3417,6 +3502,17 @@ def main(argv=None) -> int:
         "buckets (14)": bucket_counts["ccl"],
         "torchrun (15)": torchrun_counts["ccl"],
     }
+    # the depthwise kernel's launches by path (plain and use_pallas routes), replays counted
+    dw_paths = {
+        "serving (3 routes)": sum(c["dw"] for c in counts.values()),
+        "fused pipeline (3 routes)": sum(c["dw"] for c in fused_counts.values()),
+        "training validation (8)": train_val["dw"],
+        "evaluate-phase serving (9)": eval_counts["dw"],
+        "mixed-training validation (10)": mixed_val["dw"],
+        "multi-rank serving and validation (11)": multirank_counts["dw"],
+        "buckets (14)": bucket_counts["dw"],
+        "torchrun (15)": torchrun_counts["dw"],
+    }
     kernels = [
         {
             "name": "residual_block", "route": "cuda",
@@ -3460,6 +3556,17 @@ def main(argv=None) -> int:
             "bound_by": "bytes",
             "library_ms": None,
         },
+        {
+            "name": "depthwise_conv3d", "route": "cuda",
+            "source": "light_unet_tpu_torch/csrc/depthwise_conv.cu",
+            "replaces": None,
+            "launches": sum(dw_paths.values()),
+            "max_abs_err": dw_err, "max_ulps": dw_ulps,
+            "ms": sum(r["ms"] for r in dw_rows), "plain_ms": sum(r["plain_ms"] for r in dw_rows),
+            "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in dw_rows),
+            "bound_by": "bytes",
+            "library_ms": sum(r["library_ms"] for r in dw_rows),
+        },
     ]
     log(f"[result] launches: residual_block = serving {counts['fused_block']['block']} + fused "
         f"pipeline {fused_counts['fused_block']['block']} + evaluate-phase serving "
@@ -3469,7 +3576,8 @@ def main(argv=None) -> int:
         f"{train_val['norm']} + mixed-training validation {mixed_val['norm']} + multi-rank "
         f"validation {multirank_counts['norm']} + buckets {bucket_counts['norm']} + torchrun "
         f"phase {torchrun_counts['norm']}; ccl_label = "
-        + " + ".join(f"{k} {v}" for k, v in ccl_paths.items()))
+        + " + ".join(f"{k} {v}" for k, v in ccl_paths.items()) + "; depthwise_conv3d = "
+        + " + ".join(f"{k} {v}" for k, v in dw_paths.items()))
     log("[result] ccl_label times are means over the 4 closed body masks (144x144x288); "
         f"max_abs_err {ccl_err} is the largest label difference from the plain sweeps over "
         "every mask of phase 13a")

@@ -7,7 +7,12 @@ transposed-conv upsampling with skip concatenation, 1x1x1 conv + sigmoid.
 
 Tensors are channels-last ``[B, D, H, W, C]``, as in the JAX model; each
 convolution runs on the ``[B, C, D, H, W]`` view of that memory (which is
-``torch.channels_last_3d``), so no layout copy is made.  Parameter names
+``torch.channels_last_3d``), so no layout copy is made, except the
+depthwise 3x3x3 convs in inference, which run the hand-written kernel of
+``ops/depthwise_kernel.py`` on ``[B, D, H, W, C]`` itself.  The two
+inference-only kernels a module may take (that one, and the norm kernel
+under ``use_pallas``) have no backward: ``runs_inference`` is the one rule
+for both.  Parameter names
 and shapes are the reference torch model's, so a reference ``.pth`` or
 ``tools.weights.from_jax_params(...)`` loads with ``strict=True``.
 
@@ -25,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from light_unet_tpu_torch.ops.depthwise_kernel import depthwise_conv3d
 from light_unet_tpu_torch.ops.norm_kernel import (
     IN_EPS,
     LEAKY_SLOPE,
@@ -41,6 +47,15 @@ def to_ndhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 4, 1)
 
 
+def runs_inference(module: nn.Module, *tensors: torch.Tensor) -> bool:
+    """Whether ``module`` may take an inference-only kernel: it is in eval
+    mode and autograd records through none of ``tensors`` (its input and
+    parameters).  Training forwards, and any forward that gradients flow
+    through, keep the plain modules."""
+    return not module.training and not (
+        torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+
+
 class Conv3d(nn.Conv3d):
     """``nn.Conv3d`` on ``[B, D, H, W, C]`` input, computed in ``compute_dtype``."""
 
@@ -54,6 +69,23 @@ class Conv3d(nn.Conv3d):
         y = F.conv3d(to_ncdhw(x.to(dt)), self.weight.to(dt), bias, self.stride,
                      self.padding, self.dilation, self.groups)
         return to_ndhwc(y)
+
+
+class DepthwiseConv3d(Conv3d):
+    """The 3x3x3 depthwise conv of ``DepthwiseSeparableConv`` (groups =
+    channels, zero edge, no bias).  In inference (``runs_inference``) it runs
+    ``ops/depthwise_kernel.py:depthwise_conv3d``: the hand-written kernel on
+    a card, the plain version (the same ``F.conv3d``) on the CPU.  Otherwise
+    (training) it is ``Conv3d``: cuDNN's forward and backward on a card."""
+
+    def __init__(self, channels: int, compute_dtype=torch.float32):
+        super().__init__(channels, channels, 3, padding=1, groups=channels, bias=False,
+                         compute_dtype=compute_dtype)
+
+    def forward(self, x):
+        if not runs_inference(self, x, self.weight):
+            return super().forward(x)
+        return depthwise_conv3d(x.to(self.compute_dtype).contiguous(), self.weight)
 
 
 class ConvTranspose3d(nn.ConvTranspose3d):
@@ -75,7 +107,7 @@ class InstanceNorm(nn.Module):
 
     torch ``InstanceNorm3d(C, affine=True)`` semantics, statistics in
     float32, output in the input dtype.  ``use_pallas`` (the JAX package's name for the gate) routes
-    inference through the fused norm kernel (``ops/norm_kernel.py``);
+    inference (``runs_inference``) through the fused norm kernel (``ops/norm_kernel.py``);
     ``fuse_leaky`` folds the following LeakyReLU in (slope 1.0 otherwise).
     """
 
@@ -87,7 +119,7 @@ class InstanceNorm(nn.Module):
         self.slope = LEAKY_SLOPE if fuse_leaky else 1.0
 
     def forward(self, x):
-        if self.use_pallas and not self.training:
+        if self.use_pallas and runs_inference(self, x, self.weight, self.bias):
             return fused_instance_norm_leaky_relu(
                 x, self.weight, self.bias, eps=IN_EPS, negative_slope=self.slope)
         return reference_instance_norm_leaky_relu(
@@ -123,8 +155,7 @@ class DepthwiseSeparableConv(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, compute_dtype=torch.float32):
         super().__init__()
-        self.depthwise = Conv3d(in_ch, in_ch, 3, padding=1, groups=in_ch, bias=False,
-                                compute_dtype=compute_dtype)
+        self.depthwise = DepthwiseConv3d(in_ch, compute_dtype)
         self.pointwise = Conv3d(in_ch, out_ch, 1, bias=False, compute_dtype=compute_dtype)
 
     def forward(self, x):

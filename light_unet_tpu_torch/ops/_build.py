@@ -45,6 +45,10 @@ ENTRIES = {
         # fg, labels, D, H, W, stream
         "ccl_label": [_P] * 2 + [_I] * 3 + [_P],
     },
+    "depthwise_conv": {
+        # x, weight, y, dtype, B, D, H, W, C, stream
+        "depthwise_conv3d": [_P] * 3 + [_I] * 6 + [_P],
+    },
     "instance_norm": {
         # x, scale, bias, y, part, sync, dtype, B, S, C, plan[8], eps, slope, stream
         "instance_norm_leaky": [_P] * 6 + [_I, _I, _L, _I, _P, _F, _F, _P],

@@ -31,7 +31,7 @@ The generators given are registered with every graph, so a replay advances
 each one's Philox offset as the eager calls would, and ``set_state`` on such
 a generator moves the stream the graphs read.  The kernels' launch counters
 (``ops/block_kernel.launches``, ``ops/norm_kernel.launches``,
-``ops/ccl_kernel.launches``) count a
+``ops/ccl_kernel.launches``, ``ops/depthwise_kernel.launches``) count a
 captured launch once per replay and not at the capture, which runs nothing.
 Graph memory (the pool's growth at each capture) is charged to an
 ``HbmLedger`` when one is given, and every capture appends a ``Capture``
@@ -71,7 +71,8 @@ from light_unet_tpu_torch.utils import tracing
 
 # modules whose ``launches`` counter a replay advances by what its capture recorded
 LAUNCH_COUNTERS = ("light_unet_tpu_torch.ops.block_kernel", "light_unet_tpu_torch.ops.norm_kernel",
-                   "light_unet_tpu_torch.ops.ccl_kernel")
+                   "light_unet_tpu_torch.ops.ccl_kernel",
+                   "light_unet_tpu_torch.ops.depthwise_kernel")
 # every live runner, so that ``release`` can destroy their graphs
 _runners: "weakref.WeakSet[GraphRunner]" = weakref.WeakSet()
 _serial = itertools.count()

@@ -142,7 +142,7 @@ def snapshot() -> Dict[str, int]:
     """Every counter: the recorder's, and the program's module counters as
     they stand (kernel launches and plain calls, the native library's calls
     by entry, graph replays and captures by runner)."""
-    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, norm_kernel
+    from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, depthwise_kernel, norm_kernel
     from light_unet_tpu_torch.utils import fastio, graphs
 
     with _lock:
@@ -150,6 +150,8 @@ def snapshot() -> Dict[str, int]:
     out.update({"block_kernel.launches": block_kernel.launches,
                 "block_kernel.plain_calls": block_kernel.plain_calls,
                 "norm_kernel.launches": norm_kernel.launches,
+                "depthwise_kernel.launches": depthwise_kernel.launches,
+                "depthwise_kernel.plain_calls": depthwise_kernel.plain_calls,
                 "ccl_kernel.launches": ccl_kernel.launches})
     out.update({f"fastio.calls.{k}": v for k, v in fastio.calls.items()})
     out.update({f"graphs.{k}": v for k, v in graphs.counters().items()})

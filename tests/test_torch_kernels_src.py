@@ -13,18 +13,21 @@ from pathlib import Path
 
 import pytest
 
-from light_unet_tpu_torch.ops import _build, block_kernel, ccl_kernel, norm_kernel
+from light_unet_tpu_torch.ops import _build, block_kernel, ccl_kernel, depthwise_kernel, norm_kernel
 
 CSRC = Path(_build.CSRC)
 SOURCES = sorted(CSRC.glob("*.cu"))
 WRAPPERS = {
     "ccl": (ccl_kernel, "connected_labels", "ccl_label"),
+    "depthwise_conv": (depthwise_kernel, "depthwise_conv3d", "depthwise_conv3d"),
     "instance_norm": (norm_kernel, "fused_instance_norm_leaky_relu", "instance_norm_leaky"),
     "residual_block": (block_kernel, "fused_residual_block", "residual_block"),
 }
 # what each source replaces: a Pallas TPU kernel, or (the CCL kernel) the
-# lax sweeps of a device loop that has no Pallas kernel
-REPLACES = {"ccl": "Replaces the lax sweeps of light_unet_tpu/ops/ccl.py:label_propagate"}
+# lax sweeps of a device loop that has no Pallas kernel, or (the depthwise
+# conv) nothing: the JAX package leaves that conv to XLA
+REPLACES = {"ccl": "Replaces the lax sweeps of light_unet_tpu/ops/ccl.py:label_propagate",
+            "depthwise_conv": "Replaces no TPU kernel: the JAX package leaves this conv to XLA"}
 
 
 def _c_entries(src: str) -> dict:
