@@ -1,0 +1,42 @@
+"""``serve_raw`` (``drivers/serve_raw.py``: raw volumes through the fused
+per-volume pipeline, closed loop, then the sampled maps held against the
+float32 reference) for a SwinUNETR configuration.  The loop and the check
+are ``serve_raw``'s own code; only where the weights, the reference and a
+volume's work come from differs (``cellbench/swin.py``).  The configuration
+is validated first, so a program that does not know the model fails before
+any input is made.
+"""
+
+from __future__ import annotations
+
+from cellbench import common, harness, swin
+
+
+class _SwinCommon:
+    """``cellbench.common`` with SwinUNETR's reference net, reference map and
+    work of a volume."""
+
+    reference_net = staticmethod(swin.reference_net)
+    reference_map = staticmethod(swin.reference_map)
+    volume_work = staticmethod(swin.volume_work)
+
+    def __getattr__(self, name):
+        return getattr(common, name)
+
+
+class _SwinWeights:
+    cell_state = staticmethod(swin.cell_state)
+
+
+def run(cell: harness.Cell) -> harness.Outcome:
+    from light_unet_tpu_torch.config import Config
+
+    Config.from_dict(cell.settings())  # raises if the program cannot build the model
+    base = harness.load_module("drivers", "serve_raw")  # a copy of its own
+    base.common, base.weights = _SwinCommon(), _SwinWeights()
+    out = base.run(cell)
+    if out.trace is not None:  # the attention kernels by name, device seconds
+        out.detail["attention_kernels"] = {
+            name: s for name, s in out.trace.kernel_s.items()
+            if any(k in name.lower() for k in swin.ATTENTION_KERNELS)}
+    return out

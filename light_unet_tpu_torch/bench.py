@@ -18,7 +18,12 @@ schema's name; its ``device`` key (nvidia-smi's name and power limit, or
 The model and settings are ``Config()``'s: bfloat16, ``patch_batch`` 192,
 uint16 transfer and fetch, sparse fetch, and the plain route (neither
 ``tpu.fused_block`` nor ``tpu.use_pallas``), with seeded random weights.
-``--mode bench`` takes no config, as in the JAX CLI.
+``--mode bench`` takes no config, as in the JAX CLI, unless ``--config``
+names one: then the pipeline runs that config's model and settings
+(``configs/swinunetr_fs48_roi96.yaml``: SwinUNETR, 20 windows of 96^3 a
+volume).  The CPU baseline times the lightweight U-Net, so a config of
+another model prints no baseline: ``vs_baseline`` and
+``detail.torch_cpu_serial_baseline`` are null.
 
 There is no supervisor: the JAX one retries in a child process and prints
 ``"value": 0.0`` on failure, for a flaky remote link.  Here a failure
@@ -59,6 +64,7 @@ METRIC = "volumes_per_sec_e2e_preprocess_plus_sliding_window_144x144x272"
 VOLUME_SHAPE = (144, 144, 272)
 N_VOLUMES = 6
 PATCH = (48, 48, 48)
+BASELINE_MODEL = "Lightweight3DUNet"  # what bench_torch_cpu_baseline times
 
 
 def default_config() -> Config:
@@ -382,9 +388,10 @@ def _rounded(d: dict) -> dict:
     return {k: round(v, 4) if isinstance(v, float) else v for k, v in d.items()}
 
 
-def run_bench(device="cuda") -> dict:
-    """Write the volumes, run ``bench_gpu`` and the CPU baseline, print the
-    JSON line (``bench.py:265-310``) and return it.
+def run_bench(device="cuda", config=None) -> dict:
+    """Write the volumes, run ``bench_gpu`` (at ``config``, by default
+    ``default_config()``) and the CPU baseline, print the JSON line
+    (``bench.py:265-310``) and return it.
 
     The JAX bench first turns on XLA's persistent compilation cache
     (``bench.py:269-272``); the port has no counterpart to turn on
@@ -395,22 +402,24 @@ def run_bench(device="cuda") -> dict:
     with tempfile.TemporaryDirectory() as td:
         tmpdir = Path(td)
         ids = raw_volumes(tmpdir, N_VOLUMES)
-        gpu = bench_gpu(tmpdir, ids, device=dev)
+        gpu = bench_gpu(tmpdir, ids, device=dev, config=config)
         release(dev)  # the pipeline's graph pool, before the baseline
-        baseline = bench_torch_cpu_baseline(tmpdir, ids[0])
+        same_model = config is None or config.model.name == BASELINE_MODEL
+        baseline = bench_torch_cpu_baseline(tmpdir, ids[0]) if same_model else None
 
     result = {
         "metric": METRIC,
         "value": round(gpu["volumes_per_sec"], 4),  # median of n_reps passes
         "unit": "volumes/sec",
-        "vs_baseline": round(gpu["volumes_per_sec"] / baseline["volumes_per_sec"], 2),
+        "vs_baseline": (round(gpu["volumes_per_sec"] / baseline["volumes_per_sec"], 2)
+                        if baseline else None),
         "spread": {
             "min": round(gpu["volumes_per_sec_min"], 4),
             "max": round(gpu["volumes_per_sec_max"], 4),
         },
         "detail": {
             "tpu": _rounded(gpu),
-            "torch_cpu_serial_baseline": _rounded(baseline),
+            "torch_cpu_serial_baseline": _rounded(baseline) if baseline else None,
         },
     }
     print(json.dumps(result), flush=True)

@@ -4,8 +4,10 @@ Same flags as the JAX package's CLI, and the same directory tree.  Stages:
 ``split``, ``preprocess``, ``train`` (``--resume`` continues from the latest
 checkpoint), ``inference``, ``evaluate``, and ``all`` for the five in that
 order; ``bench`` runs ``light_unet_tpu_torch/bench.py`` (the port of the
-repo's ``bench.py``: one JSON line of end-to-end volumes/s, which ignores
-``--config``, as the JAX CLI's does).  ``--device`` (default ``cuda``) is
+repo's ``bench.py``: one JSON line of end-to-end volumes/s) at the bench's
+own settings, as the JAX CLI's does, or with ``--config`` given, at that
+config's model and settings (``configs/swinunetr_fs48_roi96.yaml`` serves
+SwinUNETR).  ``--device`` (default ``cuda``) is
 where every stage runs.
 
 A multi-process run (``tpu.distributed: true``, ``tpu.num_processes`` > 1,
@@ -32,7 +34,7 @@ makes the global batch 2 x N and scales the learning rate by N:
     python -m light_unet_tpu_torch.cli --mode inference --config configs/unet_fl70.yaml \\
         --model_path models/best_model.pth --processed_dir data/processed
     python -m light_unet_tpu_torch.cli --mode evaluate --processed_dir data/processed
-    python -m light_unet_tpu_torch.cli --mode bench
+    python -m light_unet_tpu_torch.cli --mode bench [--config configs/swinunetr_fs48_roi96.yaml]
 """
 
 from __future__ import annotations
@@ -43,13 +45,17 @@ from pathlib import Path
 
 from light_unet_tpu_torch.config import Config
 
+DEFAULT_CONFIG = "configs/unet_fl70.yaml"
+
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Lightweight 3D U-Net pipeline (PyTorch + CUDA)")
     parser.add_argument("--mode", type=str, required=True,
                         choices=["all", "split", "preprocess", "train", "inference", "evaluate",
                                  "bench"])
-    parser.add_argument("--config", type=str, default="configs/unet_fl70.yaml")
+    parser.add_argument("--config", type=str, default=None,
+                        help=f"YAML config (default {DEFAULT_CONFIG}; --mode bench runs its "
+                             f"own settings unless one is given)")
     parser.add_argument("--data_root", "--raw_dir", type=str, default="data/raw")
     parser.add_argument("--processed_dir", "--data_dir", type=str, default="data/processed")
     parser.add_argument("--splits_dir", type=str, default="data/splits")
@@ -79,7 +85,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _load_config(args) -> Config:
-    cfg_path = Path(args.config)
+    cfg_path = Path(args.config or DEFAULT_CONFIG)
     config = Config.load(cfg_path) if cfg_path.exists() else Config()
     if not cfg_path.exists():
         print(f"Config {cfg_path} not found; using built-in defaults")
@@ -165,7 +171,7 @@ def _run_stage(stage: str, args, config: Config, workdir: Path, split_file: str)
     if stage == "bench":
         from light_unet_tpu_torch.bench import run_bench
 
-        run_bench(device=args.device)
+        run_bench(device=args.device, config=config if args.config else None)
         return 0
 
     from light_unet_tpu_torch.core.inferencer import Inferencer

@@ -185,6 +185,13 @@ class MetricsConfig:
     model_selection: ModelSelectionConfig = field(default_factory=ModelSelectionConfig)
 
 
+# MONAI's SwinUNETR as its BTCV recipe sets it (models/swin_unetr.py)
+SWIN_DEFAULTS = {"feature_size": 48, "depths": [2, 2, 2, 2], "num_heads": [3, 6, 12, 24],
+                 "window_size": 7, "mlp_ratio": 4.0}
+SWIN_DOWNSAMPLING = 32  # the patch embedding (2) and four merges (2^4)
+_SWIN = {"omit_unset": True}
+
+
 @dataclass
 class ModelConfig:
     name: str = "Lightweight3DUNet"
@@ -201,12 +208,55 @@ class ModelConfig:
     activation: str = "LeakyReLU"
     leaky_relu_slope: float = 0.01
     output_activation: str = "Sigmoid"
+    # SwinUNETR's keys (models/swin_unetr.py), unset for the lightweight
+    # model and then left out of to_dict(), so that its configs read and
+    # write what the JAX package's do; validate() gives an unset one
+    # MONAI's value (SWIN_DEFAULTS)
+    feature_size: Optional[int] = field(default=None, metadata=_SWIN)
+    depths: Optional[List[int]] = field(default=None, metadata=_SWIN)
+    num_heads: Optional[List[int]] = field(default=None, metadata=_SWIN)
+    window_size: Optional[int] = field(default=None, metadata=_SWIN)
+    mlp_ratio: Optional[float] = field(default=None, metadata=_SWIN)
 
     def validate(self):
         if len(self.encoder_channels) != 4:
             raise ConfigError("model.encoder_channels must have 4 levels")
-        if self.name != "Lightweight3DUNet":
+        given = [k for k in SWIN_DEFAULTS if getattr(self, k) is not None]
+        if self.name == "Lightweight3DUNet":
+            if given:
+                raise ConfigError(f"model.{given[0]} is a SwinUNETR key")
+        elif self.name == "SwinUNETR":
+            self._validate_swin()
+        else:
             raise ConfigError(f"unknown model {self.name!r}")
+
+    def _validate_swin(self):
+        for k, v in SWIN_DEFAULTS.items():
+            if getattr(self, k) is None:
+                setattr(self, k, copy.deepcopy(v))
+
+        def positive_ints(key, n=None):
+            v = getattr(self, key)
+            items = v if isinstance(v, list) else [v]
+            if (n is not None and (not isinstance(v, list) or len(v) != n)) or not all(
+                    isinstance(i, int) and not isinstance(i, bool) and i > 0 for i in items):
+                what = f"a list of {n} positive ints" if n else "a positive int"
+                raise ConfigError(f"model.{key} must be {what}, got {v!r}")
+
+        positive_ints("feature_size")
+        positive_ints("depths", 4)
+        positive_ints("num_heads", 4)
+        positive_ints("window_size")
+        if self.feature_size % 12:
+            raise ConfigError("model.feature_size must be a multiple of 12 (MONAI's rule)")
+        for i, heads in enumerate(self.num_heads):
+            if (self.feature_size * 2 ** i) % heads:
+                raise ConfigError(f"model.num_heads[{i}] = {heads} does not divide stage "
+                                  f"{i + 1}'s width {self.feature_size * 2 ** i}")
+        if isinstance(self.mlp_ratio, bool) or not isinstance(self.mlp_ratio, (int, float)) \
+                or self.mlp_ratio <= 0 or (self.feature_size * self.mlp_ratio) % 1:
+            raise ConfigError(f"model.mlp_ratio must be a positive number giving whole "
+                              f"widths, got {self.mlp_ratio!r}")
 
 
 @dataclass
@@ -511,6 +561,13 @@ class Config:
             raise ConfigError("tpu.sparse_fetch_frac must be in (0,1]")
         if self.tpu.steps_per_dispatch < 1:
             raise ConfigError("tpu.steps_per_dispatch must be >= 1")
+        if self.model.name == "SwinUNETR":
+            if any(p % SWIN_DOWNSAMPLING for p in self.data.patch_size):
+                raise ConfigError(f"data.patch_size must be multiples of {SWIN_DOWNSAMPLING} "
+                                  f"for SwinUNETR, got {self.data.patch_size}")
+            if self.tpu.fused_block:
+                raise ConfigError("tpu.fused_block runs the lightweight U-Net's block kernel; "
+                                  "SwinUNETR has no such route")
         return self
 
     # ------------------------------------------------------------------
@@ -579,6 +636,8 @@ def _to_dict(obj) -> Dict[str, Any]:
         if f.name == "_extras":
             continue
         value = getattr(obj, f.name)
+        if value is None and f.metadata.get("omit_unset"):
+            continue
         if dataclasses.is_dataclass(value):
             sub = _to_dict(value)
             nested = getattr(value, "_nested_extras", None)

@@ -1,13 +1,15 @@
-"""The model, its losses and metrics (the names ``light_unet_tpu.models``
-re-exports).  ``init_params`` has no counterpart: a torch module holds its
-parameters from construction (``unet3d.init_weights`` draws them from a
-generator), so the port has no separate initializing forward."""
+"""The models, their losses and metrics (the names ``light_unet_tpu.models``
+re-exports, and the port's second model, ``SwinUNETR``, for inference).
+``init_params`` has no counterpart: a torch module holds its parameters
+from construction (``unet3d.init_weights`` draws them from a generator), so
+the port has no separate initializing forward."""
 
 from light_unet_tpu_torch.models.unet3d import (  # noqa: F401
     Lightweight3DUNet,
     build_model,
     count_parameters,
 )
+from light_unet_tpu_torch.models.swin_unetr import SwinUNETR  # noqa: F401
 from light_unet_tpu_torch.models.losses import (  # noqa: F401
     bce_loss,
     combined_loss,

@@ -19,6 +19,20 @@ time taken on any route divides the same work.
   block reads the skip and the upsampled tensor in place, so the
   pad + concat moves nothing of its own.  The float32 parameters are read
   once.  Activations are ``dtype``.
+
+SwinUNETR (``models/swin_unetr.py``) is counted by ``swin_forward_terms``,
+each row of one ``kind``: ``conv`` (every convolution and transposed
+convolution, its decoder blocks as a U-Net block above), ``attention``
+(``q k^T`` and ``attn v`` of every head over the padded windows: what the
+attention computes, padding included), ``linear`` (qkv and proj over the
+padded windows, the merges' reductions) and ``mlp`` (the two linears of each
+block's MLP, over the unpadded tokens).  Operations are ``FlopCounterMode``'s
+(2 x multiply-accumulates); LayerNorms, softmax, GELU, rolls, pads, the
+merges' gathers and the relative-position bias's gather are not counted.
+Bytes: each linear and convolution reads its input and writes its output
+once; an MLP reads its input and writes its output (its hidden layer kept
+on chip); the attention reads q, k and v, writes its output and reads the
+float32 bias table once.
 """
 
 from __future__ import annotations
@@ -27,6 +41,7 @@ from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
 
+from light_unet_tpu_torch.models.swin_unetr import PATCH, padded_dims, window_and_shift
 from light_unet_tpu_torch.models.unet3d import build_model
 
 
@@ -116,17 +131,98 @@ def forward_terms(model_cfg, batch: int, patch: Union[int, Sequence[int]],
     return rows
 
 
+def _swin_stage_dims(dims, window: int):
+    """Each stage's (token dims, padded dims, window voxels) from the patch
+    embedding's dims."""
+    out = []
+    for _ in range(4):
+        ws, _ = window_and_shift(dims, window, 0)
+        out.append((dims, padded_dims(dims, ws), ws[0] * ws[1] * ws[2]))
+        dims = tuple(-(-d // 2) for d in dims)
+    return out
+
+
+def swin_forward_terms(model_cfg, batch: int, patch: Union[int, Sequence[int]],
+                       dtype=torch.bfloat16) -> List[Dict]:
+    """SwinUNETR's rows (``op``, ``kind``, ``flops``, ``bytes``) for ``batch``
+    patches, in the order the forward runs them."""
+    dims = (patch,) * 3 if isinstance(patch, int) else tuple(int(p) for p in patch)
+    it = torch.empty((), dtype=dtype).element_size()
+    fs, pe = model_cfg.feature_size, PATCH
+    vol = lambda d: d[0] * d[1] * d[2]  # noqa: E731
+    rows = []
+
+    def conv(op, cin, c, k, vox_in, vox_out):
+        rows.append(dict(op=op, kind="conv", flops=2 * cin * c * k ** 3 * vox_out * batch,
+                         bytes=batch * (cin * vox_in + c * vox_out) * it))
+
+    def upconv(op, cin, c, vox_in):
+        rows.append(dict(op=op, kind="conv", flops=2 * cin * c * 8 * vox_in * batch,
+                         bytes=batch * (cin * vox_in + c * 8 * vox_in) * it))
+
+    def res_block(op, cin, c, vox):
+        flops = 2 * 27 * cin * c * vox + 2 * 27 * c * c * vox
+        if cin != c:
+            flops += 2 * cin * c * vox
+        rows.append(dict(op=op, kind="conv", flops=batch * flops,
+                         bytes=batch * vox * (cin + 3 * c) * it))
+
+    def linear(op, kind, cin, c, tokens):
+        rows.append(dict(op=op, kind=kind, flops=2 * cin * c * tokens * batch,
+                         bytes=batch * tokens * (cin + c) * it))
+
+    emb = tuple(d // pe for d in dims)
+    conv("swin.embed", 1, fs, pe, vol(dims), vol(emb))
+    stages = _swin_stage_dims(emb, model_cfg.window_size)
+    for i, ((sd, pad, n), depth, heads) in enumerate(
+            zip(stages, model_cfg.depths, model_cfg.num_heads)):
+        d, name = fs * 2 ** i, f"swin.stage{i + 1}"
+        real, padded = vol(sd), vol(pad)
+        hidden = int(d * model_cfg.mlp_ratio)
+        for j in range(depth):
+            linear(f"{name}.{j}.qkv", "linear", d, 3 * d, padded)
+            rows.append(dict(op=f"{name}.{j}.attn", kind="attention",
+                             flops=2 * 2 * padded * n * d * batch,
+                             bytes=batch * 4 * padded * d * it
+                             + 4 * (2 * model_cfg.window_size - 1) ** 3 * heads))
+            linear(f"{name}.{j}.proj", "linear", d, d, padded)
+            rows.append(dict(op=f"{name}.{j}.mlp", kind="mlp",
+                             flops=2 * 2 * d * hidden * real * batch,
+                             bytes=batch * real * 2 * d * it))
+        merged = tuple(-(-x // 2) for x in sd)
+        linear(f"{name}.merge", "linear", 8 * d, 2 * d, vol(merged))
+    # the decoder: encoder blocks on the input and hidden states 0, 1, 2, 4
+    size = [dims, emb] + [tuple(-(-x // 2) for x in s[0]) for s in stages]
+    res_block("encoder1", 1, fs, vol(size[0]))
+    res_block("encoder2", fs, fs, vol(size[1]))
+    res_block("encoder3", 2 * fs, 2 * fs, vol(size[2]))
+    res_block("encoder4", 4 * fs, 4 * fs, vol(size[3]))
+    res_block("encoder10", 16 * fs, 16 * fs, vol(size[5]))
+    for name, cin, c, lv in (("decoder5", 16 * fs, 8 * fs, 4), ("decoder4", 8 * fs, 4 * fs, 3),
+                             ("decoder3", 4 * fs, 2 * fs, 2), ("decoder2", 2 * fs, fs, 1),
+                             ("decoder1", fs, fs, 0)):
+        upconv(f"{name}.up", cin, c, vol(size[lv + 1]))
+        res_block(name, 2 * c, c, vol(size[lv]))
+    out = model_cfg.output_channels
+    rows.append(dict(op="out", kind="conv", flops=2 * fs * out * vol(dims) * batch,
+                     bytes=batch * vol(dims) * (fs * it + out * 4)))
+    return rows
+
+
 def parameter_count(model_cfg) -> int:
     """Parameters of ``models/unet3d.py:build_model(model_cfg)``, built on
-    the meta device (217,228 for the flagship config)."""
+    the meta device (217,228 for the flagship config; 62,186,659 for
+    SwinUNETR at feature size 48)."""
     with torch.device("meta"):
-        return sum(p.numel() for p in build_model(model_cfg).parameters())
+        return sum(p.numel() for p in build_model(model_cfg, inference=True).parameters())
 
 
 def forward_cost(model_cfg, batch: int, patch: Union[int, Sequence[int]],
                  dtype=torch.bfloat16) -> Tuple[int, int]:
     """(operations, bytes) of one forward of ``batch`` patches: the sums of
-    ``forward_terms``, plus the float32 parameters read once."""
-    rows = forward_terms(model_cfg, batch, patch, dtype)
+    ``forward_terms`` (``swin_forward_terms`` for SwinUNETR), plus the
+    float32 parameters read once."""
+    terms = swin_forward_terms if model_cfg.name == "SwinUNETR" else forward_terms
+    rows = terms(model_cfg, batch, patch, dtype)
     return (sum(r["flops"] for r in rows),
             sum(r["bytes"] for r in rows) + 4 * parameter_count(model_cfg))

@@ -97,31 +97,40 @@ class ConvTranspose3d(nn.ConvTranspose3d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        y = F.conv_transpose3d(to_ncdhw(x.to(dt)), self.weight.to(dt), self.bias.to(dt),
-                               self.stride)
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv_transpose3d(to_ncdhw(x.to(dt)), self.weight.to(dt), bias, self.stride)
         return to_ndhwc(y)
 
 
 class InstanceNorm(nn.Module):
-    """Affine InstanceNorm over the spatial dims of ``[B, D, H, W, C]``.
+    """InstanceNorm over the spatial dims of ``[B, D, H, W, C]``.
 
-    torch ``InstanceNorm3d(C, affine=True)`` semantics, statistics in
+    torch ``InstanceNorm3d(C, affine=affine)`` semantics, statistics in
     float32, output in the input dtype.  ``use_pallas`` (the JAX package's name for the gate) routes
-    inference (``runs_inference``) through the fused norm kernel (``ops/norm_kernel.py``);
+    inference (``runs_inference``) through the fused norm kernel (``ops/norm_kernel.py``),
+    which a non-affine norm gives a unit scale and a zero bias;
     ``fuse_leaky`` folds the following LeakyReLU in (slope 1.0 otherwise).
     """
 
-    def __init__(self, channels: int, use_pallas: bool = False, fuse_leaky: bool = False):
+    def __init__(self, channels: int, use_pallas: bool = False, fuse_leaky: bool = False,
+                 affine: bool = True):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        if affine:
+            self.weight = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
         self.use_pallas = use_pallas
         self.slope = LEAKY_SLOPE if fuse_leaky else 1.0
 
     def forward(self, x):
-        if self.use_pallas and runs_inference(self, x, self.weight, self.bias):
+        params = () if self.weight is None else (self.weight, self.bias)
+        if self.use_pallas and runs_inference(self, x, *params):
+            scale, bias = params or (x.new_ones(x.shape[-1], dtype=torch.float32),
+                                     x.new_zeros(x.shape[-1], dtype=torch.float32))
             return fused_instance_norm_leaky_relu(
-                x, self.weight, self.bias, eps=IN_EPS, negative_slope=self.slope)
+                x, scale, bias, eps=IN_EPS, negative_slope=self.slope)
         return reference_instance_norm_leaky_relu(
             x, self.weight, self.bias, eps=IN_EPS, negative_slope=self.slope)
 
@@ -167,20 +176,20 @@ class ResidualBlock(nn.Module):
 
     def __init__(self, in_ch: int, features: int, use_depthwise_separable: bool = True,
                  use_grouped: bool = True, groups: int = 8, dropout_p: float = 0.1,
-                 compute_dtype=torch.float32, use_pallas: bool = False):
+                 compute_dtype=torch.float32, use_pallas: bool = False, affine: bool = True):
         super().__init__()
         self.use_depthwise_separable = use_depthwise_separable
         self.compute_dtype = compute_dtype
         self.conv1 = self._conv(in_ch, features, use_grouped, groups)
-        self.norm1 = InstanceNorm(features, use_pallas, fuse_leaky=True)
+        self.norm1 = InstanceNorm(features, use_pallas, fuse_leaky=True, affine=affine)
         self.dropout = ChannelDropout(dropout_p) if dropout_p > 0 else None
         self.conv2 = self._conv(features, features, use_grouped, groups)
-        self.norm2 = InstanceNorm(features, use_pallas)
+        self.norm2 = InstanceNorm(features, use_pallas, affine=affine)
         self.shortcut = None
         if in_ch != features:
             self.shortcut = nn.Sequential(
                 Conv3d(in_ch, features, 1, bias=False, compute_dtype=compute_dtype),
-                InstanceNorm(features, use_pallas),
+                InstanceNorm(features, use_pallas, affine=affine),
             )
 
     def _conv(self, in_ch, features, use_grouped, groups):
@@ -285,9 +294,17 @@ class Lightweight3DUNet(nn.Module):
 
 
 def build_model(model_cfg, compute_dtype=torch.float32, inference: bool = False,
-                use_pallas: bool = False) -> Lightweight3DUNet:
-    """Construct the model from a ``ModelConfig`` (same switches as the JAX
-    package's ``build_model``)."""
+                use_pallas: bool = False) -> nn.Module:
+    """Construct the model that ``model_cfg.name`` names from a ``ModelConfig``:
+    the lightweight U-Net (same switches as the JAX package's ``build_model``)
+    or, for inference only, ``models/swin_unetr.py:SwinUNETR``."""
+    if model_cfg.name == "SwinUNETR":
+        from light_unet_tpu_torch.models.swin_unetr import build_swin_unetr
+
+        if not inference:
+            raise ValueError("SwinUNETR is built for inference only: the port does not "
+                             "train it")
+        return build_swin_unetr(model_cfg, compute_dtype, use_pallas)
     dropout = model_cfg.dropout_p if (model_cfg.use_dropout and not inference) else 0.0
     return Lightweight3DUNet(
         in_channels=1,

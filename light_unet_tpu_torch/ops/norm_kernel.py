@@ -37,11 +37,14 @@ _workspaces = {}
 
 
 def reference_instance_norm_leaky_relu(x, scale, bias, *, eps=IN_EPS, negative_slope=LEAKY_SLOPE):
-    """Plain torch version (the CPU path and the numerical oracle)."""
+    """Plain torch version (the CPU path and the numerical oracle).  With
+    ``scale`` and ``bias`` None the norm has no affine step."""
     x32 = x.float()
     mean = x32.mean(dim=(1, 2, 3), keepdim=True)
     var = (x32 - mean).square().mean(dim=(1, 2, 3), keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float() + bias.float()
     return torch.where(y > 0, y, negative_slope * y).to(x.dtype)
 
 

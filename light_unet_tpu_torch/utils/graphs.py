@@ -32,7 +32,10 @@ each one's Philox offset as the eager calls would, and ``set_state`` on such
 a generator moves the stream the graphs read.  The kernels' launch counters
 (``ops/block_kernel.launches``, ``ops/norm_kernel.launches``,
 ``ops/ccl_kernel.launches``, ``ops/depthwise_kernel.launches``) count a
-captured launch once per replay and not at the capture, which runs nothing.
+captured launch once per replay and not at the capture, which runs nothing;
+so do the counter dicts that modules register with
+``tracing.register_counts`` (SwinUNETR's forwards and window attention
+calls and tokens).
 Graph memory (the pool's growth at each capture) is charged to an
 ``HbmLedger`` when one is given, and every capture appends a ``Capture``
 record (runner, key, warm-up and capture seconds, pool growth, reserved and
@@ -98,13 +101,25 @@ captures: List[Capture] = []
 
 
 def _counters() -> Tuple[int, ...]:
-    return tuple(importlib.import_module(m).launches for m in LAUNCH_COUNTERS)
+    """The launch counters of ``LAUNCH_COUNTERS``, then the values of the
+    registered counter dicts (``tracing.registered_counts``) in their order.
+    Dicts are only ever added at the end, so a capture's counts still line
+    up with the dicts after a later registration."""
+    out = [importlib.import_module(m).launches for m in LAUNCH_COUNTERS]
+    for table in tracing.registered_counts().values():
+        out += table.values()
+    return tuple(out)
 
 
 def _add_launches(counts: Sequence[int]) -> None:
+    """Add ``counts`` (as ``_counters`` orders them) to the counters."""
+    counts = iter(counts)
     for name, n in zip(LAUNCH_COUNTERS, counts):
         if n:
             importlib.import_module(name).launches += n
+    for table in tracing.registered_counts().values():
+        for key, n in zip(list(table), counts):
+            table[key] += n
 
 
 class Captured(NamedTuple):
@@ -234,9 +249,10 @@ def _as_tuple(out) -> Tuple[torch.Tensor, ...]:
 
 def unit_key(unit: str, apply_fn=None, **static) -> tuple:
     """A unit's graph key: its name; the route and compute dtype of the
-    network ``apply_fn`` it runs (a ``models.unet3d.Lightweight3DUNet`` or
-    ``make_fused_apply``'s function), the float32 convolutions' TF32 flag and
-    the function itself; then its static arguments as (name, value) pairs.
+    network ``apply_fn`` it runs (a model that ``models.unet3d.build_model``
+    returns, ``Lightweight3DUNet`` or ``SwinUNETR``, or ``make_fused_apply``'s
+    function), the float32 convolutions' TF32 flag and the function itself;
+    then its static arguments as (name, value) pairs.
     ``run_unit`` appends the shapes and dtypes of the inputs."""
     return (unit, getattr(apply_fn, "route", None), getattr(apply_fn, "compute_dtype", None),
             torch.backends.cudnn.allow_tf32, id(apply_fn)) + tuple(sorted(static.items()))

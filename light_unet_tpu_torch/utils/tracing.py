@@ -20,7 +20,9 @@
   session is active a span also opens a ``record_function`` range named
   ``lu.<name>``, so a trace shows the program's ranges apart from torch's.
   ``snapshot()`` returns the counters with the program's module counters
-  (kernel launches, native calls, graph replays and captures by runner).
+  (kernel launches, native calls, graph replays and captures by runner,
+  and the dicts that modules register with ``register_counts``, such as
+  SwinUNETR's forwards and attention calls and tokens).
 * ``StageTimer`` accumulates wall-clock time of named stages across
   ``time(name)`` blocks and reports totals, calls and seconds per call, or
   writes them as JSON (the JAX package's keys and rounding).  It reads the
@@ -51,6 +53,9 @@ _counters: Dict[str, int] = defaultdict(int)
 _lock = threading.Lock()  # spans and counts come from worker threads too
 _local = threading.local()  # per thread: ``stack`` of open spans, ``req``
 _ids = itertools.count(1)
+# counter dicts that modules keep whether or not the recorder is on, by the
+# prefix ``snapshot()`` gives their keys, in the order they were registered
+_registered: Dict[str, Dict[str, int]] = {}
 _clock = time.time_ns
 _NOOP = nullcontext()
 
@@ -138,10 +143,24 @@ def count(name: str, n: int = 1) -> None:
             _counters[name] += n
 
 
+def register_counts(prefix: str, counts: Dict[str, int]) -> Dict[str, int]:
+    """Have ``snapshot()`` report the module's ``counts`` (a dict of ints
+    whose keys stay fixed) as ``<prefix>.<key>``, and a CUDA graph replay
+    advance them by what its capture added (``utils/graphs.py``); returns
+    ``counts``.  A prefix registered again keeps its place."""
+    _registered[prefix] = counts
+    return counts
+
+
+def registered_counts() -> Dict[str, Dict[str, int]]:
+    """The registered counter dicts by prefix, in the order they came."""
+    return _registered
+
+
 def snapshot() -> Dict[str, int]:
     """Every counter: the recorder's, and the program's module counters as
     they stand (kernel launches and plain calls, the native library's calls
-    by entry, graph replays and captures by runner)."""
+    by entry, graph replays and captures by runner, the registered dicts)."""
     from light_unet_tpu_torch.ops import block_kernel, ccl_kernel, depthwise_kernel, norm_kernel
     from light_unet_tpu_torch.utils import fastio, graphs
 
@@ -153,6 +172,8 @@ def snapshot() -> Dict[str, int]:
                 "depthwise_kernel.launches": depthwise_kernel.launches,
                 "depthwise_kernel.plain_calls": depthwise_kernel.plain_calls,
                 "ccl_kernel.launches": ccl_kernel.launches})
+    for prefix, counts in _registered.items():
+        out.update({f"{prefix}.{k}": v for k, v in counts.items()})
     out.update({f"fastio.calls.{k}": v for k, v in fastio.calls.items()})
     out.update({f"graphs.{k}": v for k, v in graphs.counters().items()})
     return out
