@@ -18,6 +18,12 @@ Phases:
    beside ``F.instance_norm`` + ``F.leaky_relu``; its device time per call
    and device launches per call (must be 1) from torch.profiler, and its
    plan (chunks per sample, CTAs per SM, samples per round, shared bytes);
+   then at SwinUNETR's two large decoder shapes, B = 20 bf16 non-affine
+   (96^3 x 48, 85 MB a sample: the streaming variant; 48^3 x 48: held on
+   chip), held and timed the same way beside their byte bounds (the
+   variant's own: x read twice and y written, 6 B an element, when it
+   streams; x read once and y written, 4 B, the function's least, for
+   both), with the plan each took;
 4. the fused residual-block kernel at the 8 block shapes of a 48^3 patch,
    B = 192 in bf16 and B = 16 in f32, held against its plain version
    (f32 <= 5e-5, bf16 <= 2e-2, relative to max(|ref|, 1)) and timed, with
@@ -50,9 +56,10 @@ Phases:
 6. the serving path: a seeded ``best_model.pth`` and the preprocessed tree
    (its body masks included) go through ``Inferencer.infer_split`` three
    times: ``tpu.fused_block`` (the block kernel's launch count must rise,
-   the plain block must never run), ``tpu.use_pallas`` (the norm kernel's
-   count must rise), and neither gate (the plain model), whose prob maps
-   the first two must match within 5e-2 abs; each run decodes image and
+   the plain block must never run), ``tpu.use_pallas`` and neither gate
+   (the plain route: both launch the norm kernel, as many times, for the
+   same forwards; 23 a forward, checked on one plain-route forward in
+   phase 4), whose prob maps the first two must match within 5e-2 abs; each run decodes image and
    body mask of every case through the host library; one case is then
    split serially with ``StageTimer`` (decode, prepare, dispatch, device
    work, candidate table, fetch, NIfTI write, JSON write);
@@ -478,6 +485,63 @@ def norm_phase(batch: int, gen, timed: bool):
     return rows, max_err
 
 
+# SwinUNETR's InstanceNorms at B = 20 (a volume's one chunk of 96^3 windows)
+# beyond the U-Net's: encoder1's and decoder1's three each at 96^3 x 48 and
+# decoder2's three at 48^3 x 48, all non-affine
+SWIN_NORMS = {(96, 48): 6, (48, 48): 3}
+
+
+def norm_swin_phase(gen, batch: int = 20) -> dict:
+    """K2 at SwinUNETR's two large shapes, bf16, non-affine (a unit scale
+    and a zero bias), slopes 0.01 and 1.0: against the plain version (2e-2
+    abs), bit-identical twice, timed (CUDA events over 10 calls, device time
+    and launches from torch.profiler) beside the plain version and its byte
+    bounds; returns {(d, c): row}."""
+    import torch
+
+    from light_unet_tpu_torch.ops import norm_kernel as nk
+
+    rows = {}
+    for d, c in SWIN_NORMS:
+        x = (torch.randn((batch, d, d, d, c), generator=gen, device="cuda") * 3 + 1).to(
+            torch.bfloat16)
+        s, b = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+        err = 0.0
+        for slope in (0.01, 1.0):
+            got = nk.fused_instance_norm_leaky_relu(x, s, b, negative_slope=slope)
+            again = nk.fused_instance_norm_leaky_relu(x, s, b, negative_slope=slope)
+            want = nk.reference_instance_norm_leaky_relu(x, None, None, negative_slope=slope)
+            err = max(err, (got.float() - want.float()).abs().max().item())
+            same = torch.equal(got, again)
+            if not err <= 2e-2 or not same:
+                raise AssertionError(f"norm kernel {d}^3x{c} B={batch} slope {slope}: max abs "
+                                     f"err {err} (bar 2e-2), bit-identical {same}")
+            del got, again, want
+        plan = nk.kernel_plan(tuple(x.shape), torch.bfloat16)
+        run = lambda: nk.fused_instance_norm_leaky_relu(x, s, b)  # noqa: E731
+        ms = cuda_ms(run)
+        name, dev_ms, per_call = device_launches(run, "in_leaky")
+        if per_call != 1:
+            raise AssertionError(f"norm kernel {d}^3x{c}: {per_call} device launches per call")
+        plain_ms = cuda_ms(lambda: nk.reference_instance_norm_leaky_relu(x, None, None),
+                           iters=3, warmup=1)
+        least_ms = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        own_ms = least_ms * (1.5 if plan["streams"] else 1.0)
+        rows[(d, c)] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bytes_ms=least_ms,
+                            own_bytes_ms=own_ms, err=err, plan=plan)
+        log(f"  norm {d}^3 x {c} bf16 B={batch} non-affine: max abs err {err:.3e}, "
+            f"bit-identical twice; plan: k {plan['k']} chunks of {plan['rows_per_chunk']} rows, "
+            f"{plan['ctas_per_sm']} CTAs/SM, {plan['groups']} samples/round, streams "
+            f"{plan['streams']}; kernel {ms:.4f} ms (CUDA events), {dev_ms:.4f} ms device "
+            f"({name}), plain {plain_ms:.3f} ms; bounds: the variant's own "
+            f"({'6' if plan['streams'] else '4'} B an element) {own_ms:.4f} ms "
+            f"({100 * own_ms / dev_ms:.1f} % of it), the least (4 B) {least_ms:.4f} ms "
+            f"({100 * least_ms / dev_ms:.1f} %)")
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
 def block_ops(d: int, cin: int, c: int) -> tuple:
     """(CUDA-core flops, tensor-core-able flops) per sample of one block."""
     s = d ** 3
@@ -889,12 +953,11 @@ def check_gates(counts: dict, what: str) -> None:
     if counts["fused_block"]["block"] == 0 or counts["fused_block"]["plain_block"] != 0:
         raise AssertionError(f"fused_block {what} did not go through the block kernel: "
                              f"{counts['fused_block']}")
-    if counts["use_pallas"]["norm"] == 0:
-        raise AssertionError(f"use_pallas {what} did not go through the norm kernel: "
-                             f"{counts['use_pallas']}")
-    if {k: v for k, v in counts["plain"].items() if k not in ("ccl", "dw")} != dict(
-            block=0, plain_block=0, norm=0):
-        raise AssertionError(f"plain {what} launched a block or norm kernel: {counts['plain']}")
+    if not counts["use_pallas"]["norm"] == counts["plain"]["norm"] > 0:
+        raise AssertionError(f"the use_pallas and plain {what}s must both go through the norm "
+                             f"kernel, as many times: {counts}")
+    if (counts["plain"]["block"], counts["plain"]["plain_block"]) != (0, 0):
+        raise AssertionError(f"plain {what} launched a block kernel: {counts['plain']}")
     if counts["fused_block"]["dw"] != 0 or not (counts["plain"]["dw"] and counts["use_pallas"]["dw"]):
         raise AssertionError(f"{what}: the depthwise kernel must launch on the plain and use_pallas "
                              f"routes and not on fused_block: {counts}")
@@ -2529,7 +2592,8 @@ def buckets_phase(tmp: Path, state: dict, model_path: Path, smi: str) -> dict:
     log(f"  [14] peak reserved over the routes {gib(peak)} GiB of "
         f"{gib(torch.cuda.get_device_properties(0).total_memory)} GiB; phase 14 "
         f"{time.perf_counter() - t0:.1f} s on {smi}")
-    return dict(block=launches["fused_block"]["block"], norm=launches["use_pallas"]["norm"],
+    return dict(block=launches["fused_block"]["block"],
+                norm=launches["use_pallas"]["norm"] + launches["plain"]["norm"],
                 ccl=preprocess_ccl + sum(c["ccl"] for c in launches.values()),
                 dw=sum(c["dw"] for c in launches.values()))
 
@@ -3310,6 +3374,7 @@ def main(argv=None) -> int:
     log(f"[norm kernel] B={batch}")
     norm_rows, norm_err = norm_phase(batch, gen, timed=not args.quick)
     log(f"  max abs err: bf16 {norm_err[torch.bfloat16]:.3e}, f32 {norm_err[torch.float32]:.3e}")
+    swin_norm_rows = {} if args.quick else norm_swin_phase(gen)
 
     # 4. K1
     model_cfg = Config.from_dict(SERVING).model
@@ -3317,6 +3382,13 @@ def main(argv=None) -> int:
                          torch.Generator().manual_seed(1)).cuda().eval()
     model32 = build_model(model_cfg, torch.float32, inference=True).cuda().eval()
     model32.load_state_dict(model.state_dict(), strict=True)
+    n = norm_kernel.launches
+    with torch.no_grad():
+        model(torch.rand((2, 48, 48, 48, 1), generator=gen, device="cuda"))
+    if norm_kernel.launches - n != 23 or model.route != "plain":
+        raise AssertionError(f"a plain-route eval forward launched the norm kernel "
+                             f"{norm_kernel.launches - n} times, not 23")
+    log("  a plain-route eval forward launched the norm kernel 23 times")
     log(f"[block kernel] bf16 B={batch}")
     block_rows, block_err = block_phase(model, batch, 2e-2, gen, timed=not args.quick)
     _, block_err32 = block_phase(model32, 4 if args.quick else 16, 5e-5, gen, timed=False)
@@ -3531,7 +3603,8 @@ def main(argv=None) -> int:
             "name": "instance_norm_leaky", "route": "cuda",
             "source": "light_unet_tpu_torch/csrc/instance_norm.cu",
             "replaces": "light_unet_tpu/ops/pallas_kernels.py:118",
-            "launches": (counts["use_pallas"]["norm"] + fused_counts["use_pallas"]["norm"]
+            "launches": (counts["use_pallas"]["norm"] + counts["plain"]["norm"]
+                         + fused_counts["use_pallas"]["norm"] + fused_counts["plain"]["norm"]
                          + train_val["norm"] + mixed_val["norm"] + multirank_counts["norm"]
                          + bucket_counts["norm"] + torchrun_counts["norm"]),
             "max_abs_err": norm_err[torch.bfloat16],
@@ -3541,6 +3614,7 @@ def main(argv=None) -> int:
                             for k, r in norm_rows.items()),
             "bound_by": "bytes" if norm_bytes >= norm_ops else "operations",
             "library_ms": total(norm_rows, "library_ms", norm_calls),
+            "swin_b20": {f"{d}^3x{c}": r for (d, c), r in swin_norm_rows.items()},
         },
         {
             "name": "ccl_label", "route": "cuda",
@@ -3571,10 +3645,13 @@ def main(argv=None) -> int:
     log(f"[result] launches: residual_block = serving {counts['fused_block']['block']} + fused "
         f"pipeline {fused_counts['fused_block']['block']} + evaluate-phase serving "
         f"{eval_counts['block']} + multi-rank serving {multirank_counts['block']} + buckets "
-        f"{bucket_counts['block']}; instance_norm_leaky = serving {counts['use_pallas']['norm']} + "
-        f"fused pipeline {fused_counts['use_pallas']['norm']} + training-phase validation "
+        f"{bucket_counts['block']}; instance_norm_leaky = serving (use_pallas, plain) "
+        f"{counts['use_pallas']['norm']} + {counts['plain']['norm']} + fused pipeline "
+        f"{fused_counts['use_pallas']['norm']} + {fused_counts['plain']['norm']} + "
+        f"training-phase validation "
         f"{train_val['norm']} + mixed-training validation {mixed_val['norm']} + multi-rank "
-        f"validation {multirank_counts['norm']} + buckets {bucket_counts['norm']} + torchrun "
+        f"validation {multirank_counts['norm']} + buckets (use_pallas and plain) "
+        f"{bucket_counts['norm']} + torchrun "
         f"phase {torchrun_counts['norm']}; ccl_label = "
         + " + ".join(f"{k} {v}" for k, v in ccl_paths.items()) + "; depthwise_conv3d = "
         + " + ".join(f"{k} {v}" for k, v in dw_paths.items()))

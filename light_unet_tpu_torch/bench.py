@@ -77,8 +77,8 @@ def default_config() -> Config:
 def seeded_model(cfg: Config, device, seed: int = 0):
     """(inference model, apply_fn) of ``cfg`` on ``device`` with seeded random
     weights; the route is ``cfg``'s gates, as ``core/inferencer.py`` takes it:
-    ``tpu.use_pallas`` builds the norms on the norm kernel and
-    ``tpu.fused_block`` runs the blocks through the block kernel."""
+    ``tpu.fused_block`` runs the blocks through the block kernel, and
+    otherwise the norms run the norm kernel on either route."""
     model = build_model(cfg.model, COMPUTE_DTYPES[cfg.tpu.compute_dtype], inference=True,
                         use_pallas=cfg.tpu.use_pallas)
     init_weights(model, torch.Generator().manual_seed(seed))

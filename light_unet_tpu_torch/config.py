@@ -499,6 +499,8 @@ class TpuConfig:
     # Off by default: measured on a v5e chip the XLA lowering wins (59 ms vs
     # 76 ms full forward on 96x48^3 bf16) because it pipelines the two HBM
     # passes better than the kernel's per-sample grid can hide its DMAs.
+    # In the PyTorch port every inference norm runs the hand-written norm
+    # kernel on either route; the key only names the route (graph keys).
     use_pallas: bool = False
     # Fused residual-block Pallas kernel (ops/pallas_block.py): the whole
     # conv->IN->LeakyReLU->conv->IN->+res block runs per sample with

@@ -10,8 +10,9 @@ components filtered at ``min_volume_cc`` -> voxel + mm bboxes expanded by
 
 The model runs on ``device`` (``"cuda"`` by default; raises when CUDA is
 absent and the CPU was not asked for).  ``tpu.fused_block`` sends every
-residual block through the fused block kernel; ``tpu.use_pallas`` sends
-every InstanceNorm through the fused norm kernel.  In float32 every launch
+residual block through the fused block kernel; otherwise every
+InstanceNorm runs the fused norm kernel, with ``tpu.use_pallas`` or without
+it (the gate only names the route in the graph key).  In float32 every launch
 runs without TF32 (``utils/device.py:precision_scope``), as the JAX package
 runs its float32 model at ``precision="highest"``; ``tpu.profile_dir``
 traces ``infer_split``.  On a card a case is two CUDA graph replays and no

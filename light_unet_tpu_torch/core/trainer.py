@@ -33,8 +33,8 @@ AdamW with optax's semantics as explicit tensor ops on one flat float32
 buffer that the model's parameters view, which skips a non-finite step
 whole (parameters, both moments and the step count unchanged) without a
 host sync.  The training forward never reaches the fused kernels: the norm
-kernel serves only ``eval()`` mode (``tpu.use_pallas``), which validation
-uses under ``no_grad``.  In float32, steps and validation run without TF32
+and depthwise kernels serve only ``eval()`` mode under ``no_grad``
+(``models/unet3d.py:runs_inference``), which validation uses.  In float32, steps and validation run without TF32
 (``utils/device.py:precision_scope``; the flags are restored after each).
 
 Data: a device-resident corpus (``datasets/device_corpus.py``) when the

@@ -34,11 +34,19 @@
 //     this one's reduction and wait.  (One CTA per SM holding two chunks, the
 //     next loading during the whole round, measured slower: half the samples
 //     a round, twice the waits.)
-//   - a sample whose chunks cannot all be resident (over about 30 MB, e.g. a
-//     96^3 x 16 float32 patch; none on the serving path) takes the streaming
-//     variant of the same kernel: the whole grid is one group, chunks are not
-//     held on chip, and x is read twice (sums, then apply).  Same launch,
-//     same fixed-order statistics.
+//   - a sample whose chunks cannot all be resident (over about 30 MB: a
+//     96^3 x 48 bf16 window of SwinUNETR's first and last blocks, 85 MB, or
+//     a 96^3 x 16 float32 patch) takes the streaming variant of the same
+//     kernel: the whole grid (528 CTAs on an H100) is one group, chunks are
+//     not held on chip, and x is read twice (sums, then apply).  Same
+//     launch, same fixed-order statistics, but with so many chunks a
+//     sample's partials are not summed by every CTA (that read k x C x 16
+//     bytes of L2 a CTA, 0.2 GB a sample at 96^3 x 48): one warp a channel,
+//     in the first ceil(C / warps) CTAs, sums them and publishes the
+//     coefficients in the workspace's slot k, and the others wait for that
+//     (a second, one-sided barrier).  The apply pass walks each chunk backwards with
+//     evict-first loads and stores, so the chunk's tail, read last by the
+//     sums, is read again from the 50 MB L2 and not from device memory.
 // Bound on the card: memory bandwidth.  The function must read x once and
 // write y once (about 6 flops per element), and this design moves exactly
 // those bytes; what it adds is one wait per round for the k CTAs of a sample
@@ -88,8 +96,9 @@ struct Args {
   void* y;            // [B, S, C], T
   const float* scale;
   const float* bias;
-  double* part;       // [B][k][C][2] float64 (sum, sum of squares) of each chunk
-  unsigned* sync;     // [B][2] (arrivals, generation), zeroed once when allocated
+  double* part;       // [B][k + 1][C][2] float64 (sum, sum of squares) of each chunk;
+                      // streaming: slot k holds each channel's coefficients (a, b)
+  unsigned* sync;     // [B][4] (arrivals, generation) twice, zeroed once when allocated
   long S, rpc;        // rows per sample, rows per chunk
   int B, C, k, G;
   int red_off;        // byte offset of the reduction buffer in shared memory
@@ -98,6 +107,31 @@ struct Args {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// V elements with evict-first loads and stores where a vector is 16 bytes
+template <typename T, int V>
+__device__ __forceinline__ void load_vec_cs(const T* p, float* out) {
+  if constexpr (V * sizeof(T) == 16) {
+    lu::Vec<T, V> r;
+    *reinterpret_cast<int4*>(&r) = __ldcs(reinterpret_cast<const int4*>(p));
+#pragma unroll
+    for (int j = 0; j < V; ++j) out[j] = lu::to_f<T>(r.v[j]);
+  } else {
+    lu::load_vec<T, V>(p, out);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec_cs(T* p, const float* in) {
+  if constexpr (V * sizeof(T) == 16) {
+    lu::Vec<T, V> r;
+#pragma unroll
+    for (int j = 0; j < V; ++j) r.v[j] = lu::from_f<T>(in[j]);
+    __stcs(reinterpret_cast<int4*>(p), *reinterpret_cast<const int4*>(&r));
+  } else {
+    lu::store_vec<T, V>(p, in);
+  }
 }
 
 // one vector global -> shared: cp.async when it is 16 bytes, else a plain copy
@@ -120,20 +154,30 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   return v;
 }
 
-// One thread of each of the k CTAs of a sample: arrive, and return once all
-// k have arrived.  sync = (arrivals, generation) of the sample.  Every
-// partial of the sample was written and fenced before its CTA arrived.
-__device__ void arrive_and_wait(unsigned* sync, int k) {
-  const unsigned gen = ld_acquire(sync + 1);  // read before arriving: it moves only after
+// One thread of one of k CTAs: arrive at sync = (arrivals, generation).  The
+// last of the k to arrive resets the count and moves the generation.
+__device__ void arrive(unsigned* sync, int k) {
   __threadfence();
   if (atomicAdd(sync, 1u) == static_cast<unsigned>(k - 1)) {
     atomicExch(sync, 0u);  // ready for the next call
     __threadfence();
     atomicAdd(sync + 1, 1u);
-  } else {
-    while (ld_acquire(sync + 1) == gen) __nanosleep(32);
   }
+}
+
+// Return once the generation word has moved from gen.
+__device__ void wait_moved(const unsigned* generation, unsigned gen) {
+  while (ld_acquire(generation) == gen) __nanosleep(32);
   __threadfence();
+}
+
+// One thread of each of the k CTAs of a sample: arrive, and return once all
+// k have arrived.  Every partial of the sample was written and fenced before
+// its CTA arrived.
+__device__ void arrive_and_wait(unsigned* sync, int k) {
+  const unsigned gen = ld_acquire(sync + 1);  // read before arriving: it moves only after
+  arrive(sync, k);
+  wait_moved(sync + 1, gen);
 }
 
 // STREAM: the chunk is not held in shared memory; x is read again to apply
@@ -163,6 +207,10 @@ __global__ void __launch_bounds__(kMaxThreads) in_leaky(Args a) {
   cp_async_commit();
 
   for (int s = g; s < a.B; s += a.G) {
+    unsigned* sync = a.sync + 4L * s;
+    // streaming: the coefficients' generation, read before this CTA arrives
+    // (it moves only after every CTA has)
+    const unsigned coef_gen = STREAM && t == 0 ? ld_acquire(sync + 3) : 0u;
     cp_async_wait_all();  // this thread's own vectors: no barrier before the sums
     const T* in = STREAM ? x + chunk(s) : buf;
     float s1[V], s2[V];
@@ -200,7 +248,7 @@ __global__ void __launch_bounds__(kMaxThreads) in_leaky(Args a) {
     __syncthreads();
 
     // the chunk's per-channel sums, float64, holders in order
-    double* part = a.part + (long)s * a.k * C * 2;
+    double* part = a.part + (long)s * (a.k + 1) * C * 2;
     for (int c = t; c < C; c += blockDim.x) {
       const float* r = red + (size_t)(c / V) * 2 * V + c % V;
       double st[2] = {0.0, 0.0};
@@ -215,10 +263,52 @@ __global__ void __launch_bounds__(kMaxThreads) in_leaky(Args a) {
         part[((long)q * C + c) * 2 + 1] = st[1];
       }
     }
-    if (a.k > 1) {
+    if (STREAM && a.k > 1) {
+      // one warp a channel sums the k partials (lanes in a fixed order, then
+      // a shuffle tree) in the first nr CTAs and publishes (a, b) in slot k;
+      // the other CTAs arrive without waiting and wait for the coefficients
+      const int warps = blockDim.x / 32, w = t / 32, l = t & 31;
+      const int nr = min(a.k, (C + warps - 1) / warps);
+      double* coef = part + (long)a.k * C * 2;
       if (t < C) __threadfence();
       __syncthreads();
-      if (t == 0) arrive_and_wait(a.sync + 2L * s, a.k);
+      if (q < nr) {
+        if (t == 0) arrive_and_wait(sync, a.k);
+        __syncthreads();
+        for (int c = q * warps + w; c < C; c += nr * warps) {  // the same c across a warp
+          double st[2] = {0.0, 0.0};
+#pragma unroll 8
+          for (int i = l; i < a.k; i += 32) {
+            st[0] += __ldcg(part + ((long)i * C + c) * 2);
+            st[1] += __ldcg(part + ((long)i * C + c) * 2 + 1);
+          }
+          for (int o = 16; o > 0; o >>= 1) {
+            st[0] += __shfl_xor_sync(0xffffffffu, st[0], o);
+            st[1] += __shfl_xor_sync(0xffffffffu, st[1], o);
+          }
+          if (l == 0) {
+            float ca, cb;
+            lu::norm_coeffs(st, a.scale[c], a.bias[c], (double)a.S, a.eps, &ca, &cb);
+            coef[2 * c] = ca;
+            coef[2 * c + 1] = cb;
+            __threadfence();
+          }
+        }
+        __syncthreads();
+        if (t == 0) arrive_and_wait(sync + 2, nr);
+      } else if (t == 0) {
+        arrive(sync, a.k);
+        wait_moved(sync + 3, coef_gen);
+      }
+      __syncthreads();
+      for (int c = t; c < C; c += blockDim.x) {
+        ab[c] = static_cast<float>(__ldcg(coef + 2 * c));
+        ab[C + c] = static_cast<float>(__ldcg(coef + 2 * c + 1));
+      }
+    } else if (!STREAM && a.k > 1) {
+      if (t < C) __threadfence();
+      __syncthreads();
+      if (t == 0) arrive_and_wait(sync, a.k);
       __syncthreads();
       // the sample's k partials in float64, in one fixed order for every CTA
       // and run: R lanes per channel each sum every R-th chunk (their loads
@@ -253,19 +343,32 @@ __global__ void __launch_bounds__(kMaxThreads) in_leaky(Args a) {
         ca[j] = ab[lane * V + j];
         cb[j] = ab[C + lane * V + j];
       }
-      const bool next = !STREAM && s + a.G < a.B;
       T* dst = y + chunk(s);
-      const T* src = x + (next ? chunk(s + a.G) : 0);
-      for (long v = t; v < nv; v += active) {
-        float f[V];
-        lu::load_vec<T, V>(in + v * V, f);
+      if constexpr (STREAM) {  // backwards from the chunk's end, the same lane
+        for (long v = nv - active + t; v >= 0; v -= active) {
+          float f[V];
+          load_vec_cs<T, V>(in + v * V, f);
 #pragma unroll
-        for (int j = 0; j < V; ++j) {
-          const float u = f[j] * ca[j] + cb[j];
-          f[j] = u > 0.f ? u : a.slope * u;
+          for (int j = 0; j < V; ++j) {
+            const float u = f[j] * ca[j] + cb[j];
+            f[j] = u > 0.f ? u : a.slope * u;
+          }
+          store_vec_cs<T, V>(dst + v * V, f);
         }
-        lu::store_vec<T, V>(dst + v * V, f);
-        if (next) copy_in<T, V>(buf + v * V, src + v * V);
+      } else {
+        const bool next = s + a.G < a.B;
+        const T* src = x + (next ? chunk(s + a.G) : 0);
+        for (long v = t; v < nv; v += active) {
+          float f[V];
+          lu::load_vec<T, V>(in + v * V, f);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const float u = f[j] * ca[j] + cb[j];
+            f[j] = u > 0.f ? u : a.slope * u;
+          }
+          lu::store_vec<T, V>(dst + v * V, f);
+          if (next) copy_in<T, V>(buf + v * V, src + v * V);
+        }
       }
     }
     cp_async_commit();
@@ -351,9 +454,9 @@ extern "C" int instance_norm_plan(int dtype, int B, int64_t S, int C, int64_t* p
 
 // x, y: [B, S, C] in dtype, 16-byte aligned when C * sizeof(T) is a multiple
 // of 16; scale, bias: [C] float32; plan: from instance_norm_plan for the same
-// (dtype, B, S, C) on this device; part: [B][k][C][2] float64 scratch; sync:
-// [B][2] uint32, zero when first used and left ready by every call.  One
-// cooperative launch, no memset.
+// (dtype, B, S, C) on this device; part: [B][k + 1][C][2] float64 scratch;
+// sync: [B][4] uint32, zero when first used and left ready by every call.
+// One cooperative launch, no memset.
 extern "C" int instance_norm_leaky(const void* x, const void* scale, const void* bias, void* y,
                                    void* part, void* sync, int dtype, int B, int64_t S, int C,
                                    const int64_t* plan, float eps, float slope, void* stream) {

@@ -414,7 +414,8 @@ class SwinUNETR(nn.Module):
     @property
     def route(self) -> str:
         """The inference route a unit's graph key records: ``use_pallas`` when
-        the decoder's norms take the norm kernel, else ``plain``."""
+        built with that gate, else ``plain`` (both run the decoder's inference
+        norms on the norm kernel)."""
         return "use_pallas" if self.use_pallas else "plain"
 
     def forward(self, x):

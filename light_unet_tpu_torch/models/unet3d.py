@@ -10,9 +10,9 @@ convolution runs on the ``[B, C, D, H, W]`` view of that memory (which is
 ``torch.channels_last_3d``), so no layout copy is made, except the
 depthwise 3x3x3 convs in inference, which run the hand-written kernel of
 ``ops/depthwise_kernel.py`` on ``[B, D, H, W, C]`` itself.  The two
-inference-only kernels a module may take (that one, and the norm kernel
-under ``use_pallas``) have no backward: ``runs_inference`` is the one rule
-for both.  Parameter names
+inference-only kernels a module takes (that one, and the fused norm kernel
+of ``ops/norm_kernel.py`` for every InstanceNorm, on either route) have no
+backward: ``runs_inference`` is the one rule for both.  Parameter names
 and shapes are the reference torch model's, so a reference ``.pth`` or
 ``tools.weights.from_jax_params(...)`` loads with ``strict=True``.
 
@@ -106,10 +106,14 @@ class InstanceNorm(nn.Module):
     """InstanceNorm over the spatial dims of ``[B, D, H, W, C]``.
 
     torch ``InstanceNorm3d(C, affine=affine)`` semantics, statistics in
-    float32, output in the input dtype.  ``use_pallas`` (the JAX package's name for the gate) routes
-    inference (``runs_inference``) through the fused norm kernel (``ops/norm_kernel.py``),
-    which a non-affine norm gives a unit scale and a zero bias;
-    ``fuse_leaky`` folds the following LeakyReLU in (slope 1.0 otherwise).
+    float32, output in the input dtype.  Inference (``runs_inference``) goes
+    through ``ops/norm_kernel.py:fused_instance_norm_leaky_relu``, on either
+    route: the hand-written kernel on a card, the plain version on the CPU.
+    A non-affine norm gives it a unit scale and a zero bias, made once per
+    device.  Training forwards keep the plain version.  ``use_pallas`` (the
+    JAX package's name for its gate) only names the route (``route``, the
+    graph key); ``fuse_leaky`` folds the following LeakyReLU in (slope 1.0
+    otherwise).
     """
 
     def __init__(self, channels: int, use_pallas: bool = False, fuse_leaky: bool = False,
@@ -121,14 +125,28 @@ class InstanceNorm(nn.Module):
         else:
             self.register_parameter("weight", None)
             self.register_parameter("bias", None)
+        self.channels = channels
         self.use_pallas = use_pallas
         self.slope = LEAKY_SLOPE if fuse_leaky else 1.0
+        self._unit = {}  # device -> (unit scale, zero bias) of a non-affine norm
+
+    def unit_affine(self, device: torch.device) -> tuple:
+        """A non-affine norm's float32 unit scale and zero bias on ``device``,
+        made once (inside a CUDA graph capture, made in the graph and not
+        kept: a capture does not run what it records)."""
+        hit = self._unit.get(device)
+        if hit is None:
+            hit = (torch.ones(self.channels, device=device),
+                   torch.zeros(self.channels, device=device))
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                return hit
+            self._unit[device] = hit
+        return hit
 
     def forward(self, x):
         params = () if self.weight is None else (self.weight, self.bias)
-        if self.use_pallas and runs_inference(self, x, *params):
-            scale, bias = params or (x.new_ones(x.shape[-1], dtype=torch.float32),
-                                     x.new_zeros(x.shape[-1], dtype=torch.float32))
+        if runs_inference(self, x, *params):
+            scale, bias = params or self.unit_affine(x.device)
             return fused_instance_norm_leaky_relu(
                 x, scale, bias, eps=IN_EPS, negative_slope=self.slope)
         return reference_instance_norm_leaky_relu(
@@ -277,7 +295,8 @@ class Lightweight3DUNet(nn.Module):
     @property
     def route(self) -> str:
         """The inference route a sliding window's graph key records:
-        ``use_pallas`` when the norms take the norm kernel, else ``plain``."""
+        ``use_pallas`` when built with that gate, else ``plain`` (both run
+        their inference norms on the norm kernel)."""
         return "use_pallas" if self.init_conv.norm1.use_pallas else "plain"
 
     def forward(self, x):

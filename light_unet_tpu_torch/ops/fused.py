@@ -18,8 +18,9 @@ shape (``utils/graphs.py``); ``graphs=False`` runs the same unit eagerly, as
 does the preprocess pass when its caller passes no runner.
 
 The network is whatever ``apply_fn`` the caller passes: the model itself,
-a model built with ``use_pallas`` (the fused norm kernel), or
-``models/fused_forward.make_fused_apply`` (the fused block kernel).
+built with ``use_pallas`` or without it (in eval mode both run every norm
+on the fused norm kernel), or ``models/fused_forward.make_fused_apply``
+(the fused block kernel).
 """
 
 from __future__ import annotations

@@ -11,7 +11,8 @@ On a CUDA tensor ``fused_instance_norm_leaky_relu`` launches the
 hand-written kernel of ``csrc/instance_norm.cu`` (or raises); on a CPU
 tensor it runs the plain version beside it,
 ``reference_instance_norm_leaky_relu``.  ``launches`` counts kernel
-launches.  Each call is one cooperative launch that reads x once; its plan
+launches.  Each call is one cooperative launch that reads x once (twice
+when a sample is too large to hold on chip, e.g. 96^3 x 48); its plan
 (``kernel_plan``) and scratch are made once per device, stream, shape and
 dtype, and float32 copies of a scale or bias that is not already float32 on
 the device are cached on the tensor.
@@ -77,15 +78,17 @@ def _plan(lib, dtype, b, s, c, device):
 
 def _workspace(lib, x, stream):
     """(plan, partial sums, sync words) for ``x``'s shape on ``stream``, made
-    once: partials [B, k, C, 2] float64, and [B, 2] (arrivals, generation)
-    words zeroed here and left ready by every call."""
+    once: partials [B, k + 1, C, 2] float64 (the streaming variant publishes
+    each channel's coefficients in slot k), and [B, 4] words (arrivals and
+    generation of the partials, then of the coefficients) zeroed here and
+    left ready by every call."""
     b, d, h, w, c = x.shape
     key = (x.device, stream, b, d * h * w, c, x.dtype)
     ws = _workspaces.get(key)
     if ws is None:
         plan = _plan(lib, x.dtype, b, d * h * w, c, x.device)
-        part = torch.empty((b, plan[0], c, 2), dtype=torch.float64, device=x.device)
-        sync = torch.zeros((b, 2), dtype=torch.int32, device=x.device)
+        part = torch.empty((b, plan[0] + 1, c, 2), dtype=torch.float64, device=x.device)
+        sync = torch.zeros((b, 4), dtype=torch.int32, device=x.device)
         ws = _workspaces[key] = (plan, part, sync)
     return ws
 

@@ -74,24 +74,43 @@ def test_norm_kernel_shapes(gen, shape, dtype, bar, slope):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(20, 48, 48, 48, 16), (192, 6, 6, 6, 128), (2, 20, 21, 22, 5)],
-                         ids=str)
+@pytest.mark.parametrize("shape", [(20, 48, 48, 48, 16), (192, 6, 6, 6, 128), (2, 20, 21, 22, 5),
+                                   (2, 96, 96, 96, 48)], ids=str)
 def test_norm_kernel_is_deterministic_and_leaves_counters_ready(gen, shape, dtype):
     """Two calls on one input give the same bits, and each call leaves every
-    sample's arrival counter at 0, so the next call needs no memset."""
+    sample's arrival counters (of the partials and, streaming, of the
+    coefficients) at 0, so the next call needs no memset."""
     x, s, b = _norm_inputs(gen, shape, dtype)
     first = norm_kernel.fused_instance_norm_leaky_relu(x, s, b)
     second = norm_kernel.fused_instance_norm_leaky_relu(x, s, b)
     assert torch.equal(first, second)
     for (dev, _, bb, ss, cc, dt), (plan, _, sync) in norm_kernel._workspaces.items():
         if (bb, ss, cc, dt) == (shape[0], shape[1] * shape[2] * shape[3], shape[4], dtype):
-            assert int(sync[:, 0].abs().sum()) == 0
+            assert int(sync[:, 0].abs().sum()) == 0 and int(sync[:, 2].abs().sum()) == 0
             assert plan[0] == 1 or int(sync[:, 1].min()) >= 2  # one generation per call
+            assert not plan[7] or int(sync[:, 3].min()) >= 2
     x2, s2, b2 = _norm_inputs(gen, shape, dtype)  # a new input right after: still right
     got = norm_kernel.fused_instance_norm_leaky_relu(x2, s2, b2)
     want = norm_kernel.reference_instance_norm_leaky_relu(x2, s2, b2)
     bar = 1e-4 if dtype == torch.float32 else 2e-2
     assert (got.float() - want.float()).abs().max().item() <= bar
+
+
+@pytest.mark.parametrize("shape,affine,slope,streams", [
+    ((20, 96, 96, 96, 48), False, 0.01, 1), ((20, 96, 96, 96, 48), False, 1.0, 1),
+    ((192, 48, 48, 48, 16), True, 0.01, 0)], ids=str)
+def test_norm_kernel_at_the_models_large_shapes(gen, shape, affine, slope, streams):
+    """SwinUNETR's 96^3 x 48 chunk of 20 windows (non-affine, 85 MB a
+    sample: the streaming variant) and the U-Net's 192 x 48^3 x 16 (affine,
+    held on chip): within the bf16 bar of the plain chain."""
+    x, s, b = _norm_inputs(gen, shape, torch.bfloat16)
+    if not affine:
+        s, b = torch.ones_like(s), torch.zeros_like(b)
+    assert norm_kernel.kernel_plan(shape, torch.bfloat16)["streams"] == streams
+    got = norm_kernel.fused_instance_norm_leaky_relu(x, s, b, negative_slope=slope)
+    want = norm_kernel.reference_instance_norm_leaky_relu(
+        x, s if affine else None, b if affine else None, negative_slope=slope)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
 
 
 def test_norm_kernel_takes_unaligned_and_strided_input(gen):
@@ -554,6 +573,52 @@ def test_resumed_graphed_run_equals_the_uninterrupted_one(gen, tmp_path, monkeyp
         assert torch.equal(t.gen.get_state(), want_gen)
 
 
+@pytest.fixture
+def no_plain_norm_on_cuda(monkeypatch):
+    """The plain chain raises on a CUDA tensor (the CPU keeps it)."""
+    from light_unet_tpu_torch.models import unet3d
+
+    plain = unet3d.reference_instance_norm_leaky_relu
+
+    def cpu_only(x, *a, **k):
+        if x.is_cuda:
+            raise AssertionError("the plain norm chain ran on a CUDA tensor")
+        return plain(x, *a, **k)
+
+    monkeypatch.setattr(unet3d, "reference_instance_norm_leaky_relu", cpu_only)
+
+
+@pytest.mark.parametrize("route", ["plain", "use_pallas"])
+def test_an_eval_forward_takes_the_norm_kernel_on_either_route(gen, no_plain_norm_on_cuda, route):
+    """A bf16 eval forward without grad launches the norm kernel once a norm
+    (23) and never runs the plain chain, on either route; the two routes
+    give the same map bit for bit."""
+    x = torch.rand((2, 48, 48, 48, 1), generator=gen, device="cuda")
+    outs = {}
+    for r in (route, "use_pallas" if route == "plain" else "plain"):
+        model, _ = _route_fn(r, torch.bfloat16)
+        assert model.route == r
+        n = norm_kernel.launches
+        with torch.no_grad():
+            outs[r] = model(x)
+        assert norm_kernel.launches - n == 23
+    assert torch.equal(outs["plain"], outs["use_pallas"])
+
+
+def test_a_forward_autograd_records_launches_no_norm_kernel(gen):
+    """Train mode, or eval with grad on (the parameters need it): the plain
+    chain, no norm-kernel launch, and a backward that reaches the norms."""
+    model, _ = _route_fn("plain", torch.bfloat16)
+    x = torch.rand((2, 16, 16, 16, 1), generator=gen, device="cuda")
+    for train in (False, True):
+        model.train(train)
+        n = norm_kernel.launches
+        model(x).float().mean().backward()
+        assert norm_kernel.launches == n
+        assert model.init_conv.norm1.weight.grad is not None
+        model.zero_grad(set_to_none=True)
+
+
 def _route_fn(route, dtype):
     model = init_weights(build_model(ModelConfig(), dtype, inference=True,
                                      use_pallas=route == "use_pallas"),
@@ -562,7 +627,7 @@ def _route_fn(route, dtype):
 
 
 @pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-6), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("route", ["fused_block", "use_pallas"])
+@pytest.mark.parametrize("route", ["fused_block", "use_pallas", "plain"])
 def test_chunk_forward_graph_follows_a_weight_change(gen, route, dtype, bar):
     """A chunk forward captured, replayed, then replayed again after an
     in-place weight update agrees with the eager forward on the new weights
@@ -592,7 +657,7 @@ def test_chunk_forward_graph_follows_a_weight_change(gen, route, dtype, bar):
     assert (got - before).abs().max() > 10 * max(err, 1e-6)
 
 
-@pytest.mark.parametrize("route", ["fused_block", "use_pallas"])
+@pytest.mark.parametrize("route", ["fused_block", "use_pallas", "plain"])
 def test_chunk_forward_replays_count_kernel_launches(gen, route):
     """Each replay adds the launches one eager forward makes to the kernel's
     counter; the capture adds none."""
@@ -754,7 +819,9 @@ def test_fused_preprocess_table_and_sweep_units_graphed_equal_eager(gen):
                                sparse_fetch=True, graphs=graphs)
         preps = [pipe.prepare(i) for i in imgs]
         pipe.dispatch(preps[0])
+        n = norm_kernel.launches
         maps = [on_device(no_sync(pipe.dispatch, p)[0]).clone() for p in preps]
+        assert norm_kernel.launches > n  # the plain route's norms run the kernel
         cfg = pipe.cfg
         pp = [fused.prepare_preprocess(i, cfg.data.intensity, 16, "cuda") for i in imgs]
         pre_runner = runner_for(torch.device("cuda"), graphs, "preprocess")

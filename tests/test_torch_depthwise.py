@@ -123,13 +123,14 @@ def test_a_recording_input_alone_takes_conv3d():
     assert dk.plain_calls == calls + 1
 
 
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "use_pallas"])
 @pytest.mark.parametrize("train,grad", [(False, False), (False, True), (True, False),
                                         (True, True)], ids=["eval-no_grad", "eval-grad",
                                                             "train-no_grad", "train-grad"])
-def test_one_rule_decides_both_inference_kernels(monkeypatch, train, grad):
+def test_one_rule_decides_both_inference_kernels(monkeypatch, train, grad, use_pallas):
     """``runs_inference`` (eval mode, autograd recording nothing) sends the
-    depthwise convs to the wrapper and, under ``use_pallas``, the norms to
-    the norm kernel; any other forward keeps both plain modules."""
+    depthwise convs to the wrapper and, on either route, the norms to the
+    norm kernel; any other forward keeps both plain modules."""
     from light_unet_tpu_torch.models import unet3d
 
     norms = []
@@ -137,7 +138,7 @@ def test_one_rule_decides_both_inference_kernels(monkeypatch, train, grad):
     monkeypatch.setattr(unet3d, "fused_instance_norm_leaky_relu",
                         lambda *a, **k: norms.append(1) or kernel(*a, **k))
     model = init_weights(build_model(ModelConfig(), torch.float32, inference=True,
-                                     use_pallas=True), torch.Generator().manual_seed(3))
+                                     use_pallas=use_pallas), torch.Generator().manual_seed(3))
     model.train(train)
     x = torch.rand((1, 16, 16, 16, 1), generator=torch.Generator().manual_seed(0))
     calls = dk.plain_calls

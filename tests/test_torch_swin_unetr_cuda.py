@@ -125,16 +125,27 @@ def fp8(t):
 
 
 @torch.no_grad()
-def test_the_norm_kernel_route_agrees(cfg, port):
+def test_the_norm_kernel_route_agrees(cfg, port, monkeypatch):
+    """Both routes launch the norm kernel once a norm (10 UnetResBlocks: 2
+    norms each, 6 shortcuts) and never run the plain chain on the card."""
     kernel = build_model(cfg, torch.bfloat16, inference=True, use_pallas=True).cuda().eval()
     kernel.load_state_dict(port.state_dict(), strict=True)
     assert kernel.route == "use_pallas" and port.route == "plain"
+    from light_unet_tpu_torch.models import unet3d
     from light_unet_tpu_torch.ops import norm_kernel
 
+    def cpu_only(x, *a, **k):
+        raise AssertionError("the plain norm chain ran on a CUDA tensor")
+
+    monkeypatch.setattr(unet3d, "reference_instance_norm_leaky_relu", cpu_only)
     x = windows(2, seed=3)
-    before = norm_kernel.launches
-    gap = (kernel(x) - port(x)).abs()
-    assert norm_kernel.launches - before == 26  # 10 UnetResBlocks: 2 norms each, 6 shortcuts
+    launches, outs = [], []
+    for model in (kernel, port):
+        before = norm_kernel.launches
+        outs.append(model(x))
+        launches.append(norm_kernel.launches - before)
+    gap = (outs[0] - outs[1]).abs()
+    assert launches == [26, 26]
     assert gap.max().item() <= BF16_MAX and gap.mean().item() <= BF16_MEAN
 
 
