@@ -139,6 +139,23 @@ def normalized_raw(settings: dict, raw: np.ndarray):
     return norm, mask
 
 
+def timeline(spans: harness.Spans, done: str, w0: int, w1: int, cpu_s: float) -> dict:
+    """The window's diagnostics for the ``detail`` line, read by no metric,
+    from the spans that ran inside it (wall clock ns ``w0`` to ``w1``):
+    ``done_s``, the seconds from ``w0`` at which each counted unit completed
+    (the end of its span ``done``), in order; ``span_ms``, the 10th, 50th and
+    90th percentiles of each span's milliseconds; ``cpu_s``, the process's
+    CPU seconds over the window."""
+    inside = [(n, s, e) for n, s, e in spans.intervals if s >= w0 and e <= w1]
+    ms = {}
+    for n, s, e in inside:
+        ms.setdefault(n, []).append((e - s) * 1e-6)
+    return {"done_s": sorted(round((e - w0) * 1e-9, 3) for n, _, e in inside if n == done),
+            "span_ms": {n: [round(float(q), 3) for q in np.percentile(v, (10, 50, 90))]
+                        for n, v in sorted(ms.items())},
+            "cpu_s": round(cpu_s, 3)}
+
+
 class Clock:
     """Set-up phases in seconds, in the order they ran."""
 

@@ -116,13 +116,14 @@ def run(cell: harness.Cell) -> harness.Outcome:
     done = failed = attempted = 0
     try:
         tracer.start()
-        t0 = time.perf_counter()
+        t0, w0, cpu0 = time.perf_counter(), time.time_ns(), time.process_time()
         while time.perf_counter() - t0 < cell.seconds:
             res = inf.infer_split(split, data)
             done += res["successful"]
             failed += len(res["failed"])
             attempted += len(ids)
         window_s = time.perf_counter() - t0
+        w1, cpu_s = time.time_ns(), time.process_time() - cpu0
         trace = tracer.stop(units=done)
     finally:
         for k, v in saved.items():
@@ -159,4 +160,5 @@ def run(cell: harness.Cell) -> harness.Outcome:
         checks={**common.map_check(gaps, cell.limits),
                 "bbox_mismatch": (float(mismatch), float(cell.limits["bbox_mismatch"]))},
         detail={"sample": sample, "gaps": gaps, "candidates": found, "components": components,
-                "captures": common.captures()})
+                "captures": common.captures(),
+                **common.timeline(spans, "write_json", w0, w1, cpu_s)})

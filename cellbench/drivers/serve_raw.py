@@ -98,7 +98,7 @@ def run(cell: harness.Cell) -> harness.Outcome:
         submitted = DEPTH
         queue[0].result()
         tracer.start()
-        t0 = time.perf_counter()
+        t0, w0, cpu0 = time.perf_counter(), time.time_ns(), time.process_time()
         pending = None
         while True:
             with spans("wait_input"):
@@ -110,7 +110,8 @@ def run(cell: harness.Cell) -> harness.Outcome:
                     kept[pending[0]] = pipe.fetch(pending[1])
                 done += 1
                 if time.perf_counter() - t0 >= cell.seconds:
-                    t_end = time.perf_counter()
+                    t_end, w1 = time.perf_counter(), time.time_ns()
+                    cpu_s = time.process_time() - cpu0
                     break
             pending = (i, disp)
             queue.append(pool.submit(load_and_prepare, submitted % len(paths)))
@@ -139,4 +140,5 @@ def run(cell: harness.Cell) -> harness.Outcome:
         setup_s=setup_s, peak_bytes=peak, setup_split=clock.split, spans=spans, trace=trace,
         work=common.volume_work(settings, shape, dev),
         checks=common.map_check(gaps, cell.limits),
-        detail={"sample": sample, "gaps": gaps, "captures": common.captures()})
+        detail={"sample": sample, "gaps": gaps, "captures": common.captures(),
+                **common.timeline(spans, "fetch", w0, w1, cpu_s)})
