@@ -54,18 +54,18 @@ Phases:
    volume; logged: each one's time beside its plain version's (min of 3),
    the inflate's MB/s, the batch decode's vol/s;
 6. the serving path: a seeded ``best_model.pth`` and the preprocessed tree
-   (its body masks included) go through ``Inferencer.infer_split`` three
-   times: ``tpu.fused_block`` (the block kernel's launch count must rise,
-   the plain block must never run), ``tpu.use_pallas`` and neither gate
-   (the plain route: both launch the norm kernel, as many times, for the
-   same forwards; 23 a forward, checked on one plain-route forward in
-   phase 4), whose prob maps the first two must match within 5e-2 abs; each run decodes image and
+   (its body masks included) go through ``Inferencer.infer_split``
+   twice: ``tpu.fused_block`` (the block kernel's launch count must rise,
+   the plain block and the depthwise kernel must never run) and the plain
+   route (the norm and depthwise kernels launch, no block kernel; 23 norms
+   a forward, checked on one plain-route forward in phase 4), whose prob
+   map the first must match within 5e-2 abs; each run decodes image and
    body mask of every case through the host library; one case is then
    split serially with ``StageTimer`` (decode, prepare, dispatch, device
    work, candidate table, fetch, NIfTI write, JSON write);
 7. the fused per-volume pipeline: ``FusedVolumePipeline`` over the 4 raw
    volumes (uint16 upload and fetch, sparse fetch, decode and prepare on a
-   worker thread) under the same three gates with the same launch-count
+   worker thread) on the same two routes with the same launch-count
    bars and the same 5e-2 bar; each map must be exactly 0 wherever
    ``body_mask_core`` of the same dequantized volume on the card is 0; each
    run makes one native decode, percentile selection and quantize + pad
@@ -74,10 +74,9 @@ Phases:
    (decode, prepare, dispatch, fetch);
 8. the train stage: the port ``Trainer`` at the full ``configs/unet_fl70.yaml``
    model (bf16, batch 2, 48^3, device corpus, ``steps_per_dispatch`` 4,
-   separable augmentation, augmentation and dropout on, ``tpu.use_pallas``
-   on) for 2 epochs on 2 of the processed phantoms, validating on the other
-   2, every dispatch unit a CUDA graph replay and every validation chunk
-   forward too (the graph keys must be the JAX package's variants: the
+   separable augmentation, augmentation and dropout on) for 2 epochs on 2
+   of the processed phantoms, validating on the other 2, every dispatch
+   unit a CUDA graph replay and every validation chunk forward too (the graph keys must be the JAX package's variants: the
    chain of 4 and the epoch's tail; warm-up and capture seconds, replays
    and pool logged); checks: finite losses, parameters changed, checkpoints and
    ``best_model.pth`` written, no norm- or block-kernel launch inside the
@@ -128,8 +127,8 @@ Phases:
    nothing, the slab maps exactly 0 outside the body mask and the block
    kernel launched on both ranks; then 20 data-parallel training steps
    (``batch_per_device`` 2, case-sharded corpus, K = 4,
-   augmentation and dropout on) and a validation under ``use_pallas``
-   (norm kernel in validation, never in the steps), the ranks' flat
+   augmentation and dropout on) and a validation (norm kernel in
+   validation, never in the steps), the ranks' flat
    parameters bit-identical, and one float32 chain whose first 3 losses are
    within 1e-4 relative of one process at the same global batch; logged: s
    a volume on each rank beside one rank's, ms a step, peak memory a rank
@@ -156,7 +155,7 @@ Phases:
    (mask read + labels written, 5 bytes a voxel) and, on the first two, the
    sweeps; (b) the serving window (uint16 in and out, sparse fetch, packed
    body mask) and its candidate table (one eager call profiled), and (c)
-   the fused program, each graphed and eager in every route and in bf16
+   the fused program, each graphed and eager on both routes and in bf16
    and float32; (d) the preprocess pass; (e) the validation sweep (9
    thresholds in one unit, the trainer's cap 4096; its 4x tier timed, one
    eager call profiled): graphed and eager bit-identical, each replay
@@ -168,12 +167,12 @@ Phases:
 14. a cohort of four z buckets: 4 raw phantoms of 144x144x240, 144x144x272,
    160x160x312 and 144x144x360 (z_bucket 48 pads them to z 240, 288, 336
    and 384) preprocessed on the card (one preprocess key a bucket), then per
-   route (``fused_block`` bf16, ``use_pallas`` bf16, plain float32 with TF32
-   off) one ``Inferencer`` and one ``FusedVolumePipeline``: (a) graphed,
+   route and dtype (``fused_block`` bf16, plain bf16, plain float32 with
+   TF32 off) one ``Inferencer`` and one ``FusedVolumePipeline``: (a) graphed,
    the volumes served in the orders A B C D, D C B A and B D A C, every map,
    candidate table and bbox JSON of the later passes bit-identical to the
    first's (the keys of a runner share its memory pool); (b) eagerly,
-   bit-identical to graphed; (c) the bf16 routes within 5e-2 of the plain
+   bit-identical to graphed; (c) the bf16 runs within 5e-2 of the plain
    float32 maps, every map exactly 0 outside the body mask; (d) per key the
    pool's growth, warm-up and capture seconds, reserved and peak memory
    after it, the ``HbmLedger`` summary, and what releasing a route gives
@@ -181,7 +180,7 @@ Phases:
    buckets (one graphed key a bucket), graphed, eager and at 4x the cap,
    counts equal to the host path and the tables graphed = eager;
 15. the CLI as a torchrun job: 6 raw phantoms 0031-0036 (seed 15) and
-   ``--mode all`` (phase 8's model in float32 with ``use_pallas``, 1 epoch,
+   ``--mode all`` (phase 8's model in float32, 1 epoch,
    the cases split 1 + 2 + 3, global batch 2 x N) run (i) in this process
    and (ii) as ``python3 -m torch.distributed.run --standalone
    --nproc_per_node N chip_smoke.py --cli-rank <dir> ...`` with N =
@@ -262,7 +261,7 @@ SERVING = {
     "tpu": {
         "compute_dtype": "bfloat16", "transfer_dtype": "uint16", "fetch_dtype": "uint16",
         "sparse_fetch": True, "sparse_fetch_frac": 1.0, "patch_batch": 192, "z_bucket": 48,
-        "mesh_shape": None, "use_pallas": False, "fused_block": True,
+        "mesh_shape": None, "fused_block": True,
     },
     "validation": {"default_threshold": 0.3},
 }
@@ -943,34 +942,33 @@ def host_io_phase(tmp: Path, raw_paths: list, processed: Path, smi: str) -> None
         f"{len(raw_paths) * min_seconds(lambda: fastio.load_f32(path)):.4f} s)")
 
 
-GATES = [("fused_block", {"fused_block": True, "use_pallas": False}),
-         ("use_pallas", {"fused_block": False, "use_pallas": True}),
-         ("plain", {"fused_block": False, "use_pallas": False})]
+GATES = [("fused_block", {"fused_block": True}), ("plain", {"fused_block": False})]
 
 
 def check_gates(counts: dict, what: str) -> None:
-    """The launch-count bars of the three gated runs."""
-    if counts["fused_block"]["block"] == 0 or counts["fused_block"]["plain_block"] != 0:
-        raise AssertionError(f"fused_block {what} did not go through the block kernel: "
-                             f"{counts['fused_block']}")
-    if not counts["use_pallas"]["norm"] == counts["plain"]["norm"] > 0:
-        raise AssertionError(f"the use_pallas and plain {what}s must both go through the norm "
-                             f"kernel, as many times: {counts}")
-    if (counts["plain"]["block"], counts["plain"]["plain_block"]) != (0, 0):
-        raise AssertionError(f"plain {what} launched a block kernel: {counts['plain']}")
-    if counts["fused_block"]["dw"] != 0 or not (counts["plain"]["dw"] and counts["use_pallas"]["dw"]):
-        raise AssertionError(f"{what}: the depthwise kernel must launch on the plain and use_pallas "
-                             f"routes and not on fused_block: {counts}")
+    """The launch-count bars of gated runs: ``fused_block`` through the block
+    kernel and no plain block or depthwise kernel; every other run (the
+    plain route) through the norm and depthwise kernels, each as many norm
+    launches, and no block kernel; every run through the CCL kernel."""
+    fused = counts["fused_block"]
+    if fused["block"] == 0 or fused["plain_block"] != 0 or fused["dw"] != 0:
+        raise AssertionError(f"fused_block {what} did not go through the block kernel alone: "
+                             f"{fused}")
+    plain = [c for name, c in counts.items() if name != "fused_block"]
+    if not plain or not all(c["norm"] == plain[0]["norm"] > 0 and c["dw"] > 0
+                            and c["block"] == c["plain_block"] == 0 for c in plain):
+        raise AssertionError(f"every plain {what} must go through the norm kernel, as many "
+                             f"times, and the depthwise kernel, and no block kernel: {counts}")
     if not all(c["ccl"] for c in counts.values()):
         raise AssertionError(f"a {what} did not go through the CCL kernel: {counts}")
 
 
 def check_against_plain(runs: dict, what: str) -> None:
-    for name in ("fused_block", "use_pallas"):
-        err = max(float(np.abs(runs[name][c] - runs["plain"][c]).max()) for c in runs["plain"])
-        log(f"  {name} vs plain model ({what}): max abs prob diff {err:.3e} (bar 5e-2)")
-        if not err <= 5e-2:
-            raise AssertionError(f"{name} {what} maps differ from the plain model by {err}")
+    err = max(float(np.abs(runs["fused_block"][c] - runs["plain"][c]).max())
+              for c in runs["plain"])
+    log(f"  fused_block vs plain model ({what}): max abs prob diff {err:.3e} (bar 5e-2)")
+    if not err <= 5e-2:
+        raise AssertionError(f"fused_block {what} maps differ from the plain model by {err}")
 
 
 def fused_pipeline(config, state: dict, graphs: bool = True):
@@ -983,7 +981,7 @@ def fused_pipeline(config, state: dict, graphs: bool = True):
     from light_unet_tpu_torch.ops.fused import FusedVolumePipeline
 
     dtype = torch.float32 if config.tpu.compute_dtype == "float32" else torch.bfloat16
-    model = build_model(config.model, dtype, inference=True, use_pallas=config.tpu.use_pallas)
+    model = build_model(config.model, dtype, inference=True)
     model.load_state_dict(state, strict=True)
     model = model.cuda().eval()
     apply_fn = make_fused_apply(model) if config.tpu.fused_block else model
@@ -1239,15 +1237,15 @@ def serving_phases(config: dict, model_path: Path, data_dir: Path, case_id: str,
 
 def train_config(data_dir: Path, splits: Path, **over) -> dict:
     """``configs/unet_fl70.yaml`` (the port's defaults are that file) with the
-    smoke's paths, 2 epochs, a checkpoint every epoch, the norm kernel's gate
-    on, and the JAX package's convergence-test rate (3e-3, no warmup:
+    smoke's paths, 2 epochs, a checkpoint every epoch, and the JAX package's
+    convergence-test rate (3e-3, no warmup:
     ``tests/integration/test_convergence.py``) so that 2 short epochs move
     the model."""
     cfg = {
         "data_dir": str(data_dir), "splits_dir": str(splits),
         "training": {"epochs": 2, "learning_rate": 3e-3, "use_warmup": False},
         "output": {"save_every_n_epochs": 1},
-        "tpu": {"use_pallas": True, "fused_block": False},
+        "tpu": {"fused_block": False},
     }
     for key, value in over.items():
         cfg.setdefault(key, {}).update(value)
@@ -1291,8 +1289,7 @@ def first_step_agreement(data_dir: Path, splits: Path, workdir: Path, config=Non
 
     off = {k: {"enabled": False} for k in ("random_flip", "random_rotation", "random_scale",
                                           "intensity_shift", "gaussian_noise")}
-    cfg = (config or train_config)(data_dir, splits, tpu={"compute_dtype": "float32",
-                                                          "use_pallas": False},
+    cfg = (config or train_config)(data_dir, splits, tpu={"compute_dtype": "float32"},
                                    model={"use_dropout": False}, augmentation=off)
     card = Trainer(Config.from_dict(cfg), workdir=str(workdir / "card"), device="cuda")
     cpu = Trainer(Config.from_dict(cfg), workdir=str(workdir / "cpu"), device="cpu")
@@ -1785,8 +1782,7 @@ def agreement_run(data_dir: Path, splits: Path, workdir: Path, graphs: bool) -> 
     losses, skip flags, optimizer state, generator state and graph keys."""
     import torch
 
-    tr = graph_trainer(data_dir, splits, workdir, graphs, compute_dtype="float32",
-                       use_pallas=False)
+    tr = graph_trainer(data_dir, splits, workdir, graphs, compute_dtype="float32")
     row = plant_nonfinite(tr)
     draw = tr.train_loader.sample_corners
     units = [np.stack([draw() for _ in range(k)]) for k in (4, 4, 2)] + [draw()]
@@ -2079,8 +2075,7 @@ def route_model(state: dict, gates: dict, dtype):
     from light_unet_tpu_torch.models.fused_forward import make_fused_apply
     from light_unet_tpu_torch.models.unet3d import build_model
 
-    model = build_model(Config.from_dict(SERVING).model, dtype, inference=True,
-                        use_pallas=gates["use_pallas"])
+    model = build_model(Config.from_dict(SERVING).model, dtype, inference=True)
     model.load_state_dict(state, strict=True)
     model = model.cuda().eval()
     return make_fused_apply(model) if gates["fused_block"] else model
@@ -2088,7 +2083,7 @@ def route_model(state: dict, gates: dict, dtype):
 
 def units_phase(state: dict, data_dir: Path, ids: list, raw_paths: list, smi: str) -> dict:
     """13b-e: each per-volume unit graphed (one replay) and eager
-    (``graphs=False``), bit-identical, per route and in bf16 and float32:
+    (``graphs=False``), bit-identical, on both routes and in bf16 and float32:
     the serving window (uint16 in and out, sparse fetch, packed body mask)
     and its candidate table, the fused program, then the preprocess pass and
     the validation sweep.  The first graphed dispatch of a key captures it;
@@ -2288,10 +2283,11 @@ BUCKET_CASES = {"0021": (144, 144, 240), "0022": (144, 144, 272), "0023": (160, 
                 "0024": (144, 144, 360)}
 # the serving orders of phase 14's passes (the first one captures)
 BUCKET_ORDERS = [(0, 1, 2, 3), (3, 2, 1, 0), (1, 3, 0, 2)]
-# (name, gates, compute dtype) of phase 14's routes
-BUCKET_ROUTES = [("fused_block", {"fused_block": True, "use_pallas": False}, "bfloat16"),
-                 ("use_pallas", {"fused_block": False, "use_pallas": True}, "bfloat16"),
-                 ("plain", {"fused_block": False, "use_pallas": False}, "float32")]
+# (name, gates, compute dtype) of phase 14's runs: the plain route in the
+# shipped bf16 and in float32, the reference the bf16 runs are held against
+BUCKET_ROUTES = [("fused_block", {"fused_block": True}, "bfloat16"),
+                 ("plain_bf16", {"fused_block": False}, "bfloat16"),
+                 ("plain_f32", {"fused_block": False}, "float32")]
 
 
 def gib(n: int) -> str:
@@ -2352,7 +2348,7 @@ def same_serving(a: dict, b: dict) -> bool:
 
 def bucket_route(name: str, gates: dict, dtype: str, state: dict, model_path: Path,
                  data_dir: Path, raw_paths: dict, work: Path, smi: str) -> tuple:
-    """14a-d for one route: serving and the fused pipeline over the four
+    """14a-d for one route and dtype: serving and the fused pipeline over the four
     buckets, graphed in three orders and eagerly; returns ({case: served
     map}, {case: fused map}, launches, peak reserved bytes)."""
     import gc
@@ -2536,11 +2532,11 @@ def bucket_sweeps(cfg, maps: dict, maps_dir: Path, data_dir: Path, smi: str) -> 
 def buckets_phase(tmp: Path, state: dict, model_path: Path, smi: str) -> dict:
     """14: four raw phantoms of four z buckets (one of another in-plane
     size) preprocessed on the card (one preprocess key a bucket), then per
-    route (``fused_block`` bf16, ``use_pallas`` bf16, plain float32 with TF32
-    off) one ``Inferencer`` and one ``FusedVolumePipeline``: graphed in three
-    orders and eagerly, bit-identical; the bf16 routes within 5e-2 of the
-    plain map; the validation sweep over the served maps.  Returns the
-    kernels' launches (preprocess and every route)."""
+    route and dtype (``fused_block`` bf16, plain bf16, plain float32 with
+    TF32 off) one ``Inferencer`` and one ``FusedVolumePipeline``: graphed in
+    three orders and eagerly, bit-identical; the bf16 runs within 5e-2 of
+    the plain float32 map; the validation sweep over the served maps.
+    Returns the kernels' launches (preprocess and every run)."""
     import torch
 
     from light_unet_tpu_torch.config import Config
@@ -2579,8 +2575,8 @@ def buckets_phase(tmp: Path, state: dict, model_path: Path, smi: str) -> dict:
         served[name], fused[name], launches[name], memory[name] = bucket_route(
             name, gates, dtype, state, model_path, data, raw_paths, tmp / f"buckets_{name}", smi)
     check_gates(launches, "bucket run")
-    for name in ("fused_block", "use_pallas"):
-        err = max(max(float(np.abs(run[name][c] - run["plain"][c]).max()) for c in ids)
+    for name in ("fused_block", "plain_bf16"):
+        err = max(max(float(np.abs(run[name][c] - run["plain_f32"][c]).max()) for c in ids)
                   for run in (served, fused))
         log(f"  [14c] {name} bf16 vs plain float32 over the 4 buckets (serving and fused): max "
             f"abs prob diff {err:.3e} (bar 5e-2)")
@@ -2593,7 +2589,7 @@ def buckets_phase(tmp: Path, state: dict, model_path: Path, smi: str) -> dict:
         f"{gib(torch.cuda.get_device_properties(0).total_memory)} GiB; phase 14 "
         f"{time.perf_counter() - t0:.1f} s on {smi}")
     return dict(block=launches["fused_block"]["block"],
-                norm=launches["use_pallas"]["norm"] + launches["plain"]["norm"],
+                norm=launches["plain_bf16"]["norm"] + launches["plain_f32"]["norm"],
                 ccl=preprocess_ccl + sum(c["ccl"] for c in launches.values()),
                 dw=sum(c["dw"] for c in launches.values()))
 
@@ -2695,7 +2691,7 @@ def nccl_window_check(mesh, state: dict, volume: np.ndarray, body: np.ndarray) -
         "uint16", sparse_fetch=True, host_prefetch=False, graphs=False, device="cuda")
     key, fn, inputs = engine.unit(engine.prepare(volume, body))
     sharded = functools.partial(fn, mesh=mesh)  # window_unit, patch-sharded
-    skey = unit_key("sharded", engine.apply_fn, **{k: v for k, v in key[5:]})
+    skey = unit_key("sharded", engine.apply_fn, **{k: v for k, v in key[4:]})
     runner = runner_for(torch.device("cuda:0"), True, "sharded", mesh=mesh)
     with torch.no_grad():
         single = run_unit(None, key, fn, *inputs)
@@ -2814,8 +2810,7 @@ def multirank_rank(rank: int, n: int, init: str, work: str, plan: dict) -> None:
         torch.save(tr.opt.flat.cpu(), work / f"flat_{rank}.pt")
         del tr
 
-        cfg32 = multirank_train_config(data, splits, compute_dtype="float32", use_pallas=False,
-                                       **fields)
+        cfg32 = multirank_train_config(data, splits, compute_dtype="float32", **fields)
         t32 = Trainer(Config.from_dict(cfg32), workdir=str(work / f"train32_r{rank}"),
                       device=device)
         t32.model.train()
@@ -2864,7 +2859,7 @@ def multirank_phase(tmp: Path, data_dir: Path, case_id: str, model_path: Path, b
     ref32 = maps32[case_id]
     one = Trainer(Config.from_dict(train_config(
         data_dir, splits, training={"batch_size": 2 * n},
-        tpu={"compute_dtype": "float32", "use_pallas": False})),
+        tpu={"compute_dtype": "float32"})),
         workdir=str(work / "one_train32"), device="cuda")
     one.model.train()
     one._set_lr(one.scheduler.current_lr())
@@ -3050,7 +3045,7 @@ def cli_rank(out_dir: str, argv: list) -> int:
 
 
 def torchrun_config(n: int) -> dict:
-    """Phase 8's training configuration (full width, ``use_pallas`` on) in
+    """Phase 8's training configuration (full width) in
     float32, 1 epoch, the 6 cases split 1 + 2 + 3 (one training case keeps
     the epoch at ~185 steps), and a global batch of 2 x ``n`` that ``n``
     ranks divide."""
@@ -3385,7 +3380,7 @@ def main(argv=None) -> int:
     n = norm_kernel.launches
     with torch.no_grad():
         model(torch.rand((2, 48, 48, 48, 1), generator=gen, device="cuda"))
-    if norm_kernel.launches - n != 23 or model.route != "plain":
+    if norm_kernel.launches - n != 23:
         raise AssertionError(f"a plain-route eval forward launched the norm kernel "
                              f"{norm_kernel.launches - n} times, not 23")
     log("  a plain-route eval forward launched the norm kernel 23 times")
@@ -3486,7 +3481,7 @@ def main(argv=None) -> int:
         # 8. the train stage on the processed phantoms
         ids = [p.name.split("_")[0] for p in raw_paths]
         log(f"[train] the port Trainer, configs/unet_fl70.yaml model, bf16, batch 2, 48^3, "
-            f"train {ids[:2]}, validate {ids[2:]}, 2 epochs, use_pallas on")
+            f"train {ids[:2]}, validate {ids[2:]}, 2 epochs")
         best, val_split, train_val = train_phase(tmp, data_dir, ids, smi, profile=args.profile)
 
         # 9. the evaluate stage on the trained model's maps
@@ -3496,7 +3491,7 @@ def main(argv=None) -> int:
 
         # 10. mixed FL + DLBCL training
         log(f"[mixed] configs/unet_mixed_fl_dlbcl.yaml, train FL {ids[:2]} + DLBCL 1001-1002, "
-            f"validate FL {ids[2:]}, 1 epoch, use_pallas on")
+            f"validate FL {ids[2:]}, 1 epoch")
         t0 = time.perf_counter()
         mixed_val = mixed_phase(tmp, data_dir, ids, smi)
         log(f"  mixed phase {time.perf_counter() - t0:.1f} s on {smi}")
@@ -3533,14 +3528,14 @@ def main(argv=None) -> int:
                        tmp / "serving_split_eager", graphs=False)
         log(f"  units phase {time.perf_counter() - t0:.1f} s on {smi}")
 
-        # 14. a cohort of four z buckets through every stage, three routes
+        # 14. a cohort of four z buckets through every stage, each route, plain in two dtypes
         log(f"[buckets] {len(BUCKET_CASES)} raw phantoms of four z buckets: preprocess, serving "
             f"and the fused pipeline per route in three orders and eagerly, the validation sweep")
         bucket_counts = buckets_phase(tmp, state, model_path, smi)
 
         # 15. the CLI in this process and as a torchrun job of one rank a card
         log(f"[torchrun] --mode all on {len(TORCHRUN_IDS)} raw phantoms in this process and as "
-            f"a torchrun job of {torch.cuda.device_count()} rank(s), float32, use_pallas on")
+            f"a torchrun job of {torch.cuda.device_count()} rank(s), float32")
         t0 = time.perf_counter()
         torchrun_counts = torchrun_phase(tmp, smi)
         log(f"  torchrun phase {time.perf_counter() - t0:.1f} s on {smi}")
@@ -3562,8 +3557,8 @@ def main(argv=None) -> int:
     blk_bytes, blk_ops = total(block_rows, "bytes_ms"), total(block_rows, "ops_ms")
     # the CCL kernel's launches by path, replays counted
     ccl_paths = {
-        "serving (3 routes)": sum(c["ccl"] for c in counts.values()),
-        "fused pipeline (3 routes)": sum(c["ccl"] for c in fused_counts.values()),
+        "serving (2 routes)": sum(c["ccl"] for c in counts.values()),
+        "fused pipeline (2 routes)": sum(c["ccl"] for c in fused_counts.values()),
         "preprocess": preprocess_ccl,
         "training validation (8)": train_val["ccl"],
         "evaluate-phase serving (9)": eval_counts["ccl"],
@@ -3574,10 +3569,10 @@ def main(argv=None) -> int:
         "buckets (14)": bucket_counts["ccl"],
         "torchrun (15)": torchrun_counts["ccl"],
     }
-    # the depthwise kernel's launches by path (plain and use_pallas routes), replays counted
+    # the depthwise kernel's launches by path (the plain route), replays counted
     dw_paths = {
-        "serving (3 routes)": sum(c["dw"] for c in counts.values()),
-        "fused pipeline (3 routes)": sum(c["dw"] for c in fused_counts.values()),
+        "serving (plain)": counts["plain"]["dw"],
+        "fused pipeline (plain)": fused_counts["plain"]["dw"],
         "training validation (8)": train_val["dw"],
         "evaluate-phase serving (9)": eval_counts["dw"],
         "mixed-training validation (10)": mixed_val["dw"],
@@ -3603,8 +3598,7 @@ def main(argv=None) -> int:
             "name": "instance_norm_leaky", "route": "cuda",
             "source": "light_unet_tpu_torch/csrc/instance_norm.cu",
             "replaces": "light_unet_tpu/ops/pallas_kernels.py:118",
-            "launches": (counts["use_pallas"]["norm"] + counts["plain"]["norm"]
-                         + fused_counts["use_pallas"]["norm"] + fused_counts["plain"]["norm"]
+            "launches": (counts["plain"]["norm"] + fused_counts["plain"]["norm"]
                          + train_val["norm"] + mixed_val["norm"] + multirank_counts["norm"]
                          + bucket_counts["norm"] + torchrun_counts["norm"]),
             "max_abs_err": norm_err[torch.bfloat16],
@@ -3645,12 +3639,11 @@ def main(argv=None) -> int:
     log(f"[result] launches: residual_block = serving {counts['fused_block']['block']} + fused "
         f"pipeline {fused_counts['fused_block']['block']} + evaluate-phase serving "
         f"{eval_counts['block']} + multi-rank serving {multirank_counts['block']} + buckets "
-        f"{bucket_counts['block']}; instance_norm_leaky = serving (use_pallas, plain) "
-        f"{counts['use_pallas']['norm']} + {counts['plain']['norm']} + fused pipeline "
-        f"{fused_counts['use_pallas']['norm']} + {fused_counts['plain']['norm']} + "
+        f"{bucket_counts['block']}; instance_norm_leaky = serving (plain) "
+        f"{counts['plain']['norm']} + fused pipeline (plain) {fused_counts['plain']['norm']} + "
         f"training-phase validation "
         f"{train_val['norm']} + mixed-training validation {mixed_val['norm']} + multi-rank "
-        f"validation {multirank_counts['norm']} + buckets (use_pallas and plain) "
+        f"validation {multirank_counts['norm']} + buckets (plain bf16 and float32) "
         f"{bucket_counts['norm']} + torchrun "
         f"phase {torchrun_counts['norm']}; ccl_label = "
         + " + ".join(f"{k} {v}" for k, v in ccl_paths.items()) + "; depthwise_conv3d = "

@@ -16,8 +16,8 @@ schema's name; its ``device`` key (nvidia-smi's name and power limit, or
 ``cpu``) is the one key the JAX line lacks.
 
 The model and settings are ``Config()``'s: bfloat16, ``patch_batch`` 192,
-uint16 transfer and fetch, sparse fetch, and the plain route (neither
-``tpu.fused_block`` nor ``tpu.use_pallas``), with seeded random weights.
+uint16 transfer and fetch, sparse fetch, and the plain route (not
+``tpu.fused_block``), with seeded random weights.
 ``--mode bench`` takes no config, as in the JAX CLI, unless ``--config``
 names one: then the pipeline runs that config's model and settings
 (``configs/swinunetr_fs48_roi96.yaml``: SwinUNETR, 20 windows of 96^3 a
@@ -76,11 +76,10 @@ def default_config() -> Config:
 
 def seeded_model(cfg: Config, device, seed: int = 0):
     """(inference model, apply_fn) of ``cfg`` on ``device`` with seeded random
-    weights; the route is ``cfg``'s gates, as ``core/inferencer.py`` takes it:
-    ``tpu.fused_block`` runs the blocks through the block kernel, and
-    otherwise the norms run the norm kernel on either route."""
-    model = build_model(cfg.model, COMPUTE_DTYPES[cfg.tpu.compute_dtype], inference=True,
-                        use_pallas=cfg.tpu.use_pallas)
+    weights, as ``core/inferencer.py`` builds it: ``tpu.fused_block`` runs the
+    blocks through the block kernel, and otherwise every norm runs the norm
+    kernel."""
+    model = build_model(cfg.model, COMPUTE_DTYPES[cfg.tpu.compute_dtype], inference=True)
     init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(device).eval()
     return model, (make_fused_apply(model) if cfg.tpu.fused_block else model)

@@ -495,12 +495,9 @@ class TpuConfig:
     # measured 18-33x faster as an op and 2.65x end-to-end training
     # throughput at batch 8 on a v5e chip (docs/PERFORMANCE.md).
     separable_augment: bool = True
-    # Fused Pallas InstanceNorm+LeakyReLU kernel (ops/pallas_kernels.py).
-    # Off by default: measured on a v5e chip the XLA lowering wins (59 ms vs
-    # 76 ms full forward on 96x48^3 bf16) because it pipelines the two HBM
-    # passes better than the kernel's per-sample grid can hide its DMAs.
-    # In the PyTorch port every inference norm runs the hand-written norm
-    # kernel on either route; the key only names the route (graph keys).
+    # The JAX package's gate of its Pallas norm kernel, read here so that its
+    # YAMLs load; it selects nothing in the port, where every inference norm
+    # runs the hand-written norm kernel.
     use_pallas: bool = False
     # Fused residual-block Pallas kernel (ops/pallas_block.py): the whole
     # conv->IN->LeakyReLU->conv->IN->+res block runs per sample with

@@ -11,8 +11,8 @@ components filtered at ``min_volume_cc`` -> voxel + mm bboxes expanded by
 The model runs on ``device`` (``"cuda"`` by default; raises when CUDA is
 absent and the CPU was not asked for).  ``tpu.fused_block`` sends every
 residual block through the fused block kernel; otherwise every
-InstanceNorm runs the fused norm kernel, with ``tpu.use_pallas`` or without
-it (the gate only names the route in the graph key).  In float32 every launch
+InstanceNorm runs the fused norm kernel (the JAX package's norm-kernel
+gate is read and ignored).  In float32 every launch
 runs without TF32 (``utils/device.py:precision_scope``), as the JAX package
 runs its float32 model at ``precision="highest"``; ``tpu.profile_dir``
 traces ``infer_split``.  On a card a case is two CUDA graph replays and no
@@ -130,8 +130,7 @@ class Inferencer:
         self.workdir = Path(workdir) if workdir else Path(".")
 
         self.compute_dtype = COMPUTE_DTYPES[cfg.tpu.compute_dtype]
-        self.model = build_model(cfg.model, self.compute_dtype, inference=True,
-                                 use_pallas=cfg.tpu.use_pallas)
+        self.model = build_model(cfg.model, self.compute_dtype, inference=True)
         state, meta = load_checkpoint(model_path)
         self.model.load_state_dict(state, strict=True)
         self.model.to(self.device).eval()

@@ -311,7 +311,7 @@ class Trainer:
 
         # --- model / loss / optimizer -----------------------------------
         self.compute_dtype = COMPUTE_DTYPES[cfg.tpu.compute_dtype]
-        self.model = build_model(cfg.model, self.compute_dtype, use_pallas=cfg.tpu.use_pallas)
+        self.model = build_model(cfg.model, self.compute_dtype)
         init_weights(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device)
         set_dropout_generator(self.model, self.gen, self.rows)

@@ -37,6 +37,5 @@ def make_fused_apply(model: Lightweight3DUNet):
         return torch.sigmoid(model.out_conv(y).float())
 
     # what a unit's graph key reads (``utils/graphs.py:unit_key``)
-    apply_fn.route = "fused_block" if model.use_depthwise_separable else model.route
     apply_fn.compute_dtype = model.compute_dtype
     return apply_fn

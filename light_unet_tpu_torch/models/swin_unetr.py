@@ -355,11 +355,9 @@ class UnetResBlock(ResidualBlock):
     KEYS = (("conv1.weight", "conv1.conv.weight"), ("conv2.weight", "conv2.conv.weight"),
             ("shortcut.0.weight", "conv3.conv.weight"))
 
-    def __init__(self, in_ch: int, features: int, compute_dtype=torch.float32,
-                 use_pallas: bool = False):
+    def __init__(self, in_ch: int, features: int, compute_dtype=torch.float32):
         super().__init__(in_ch, features, use_depthwise_separable=False, use_grouped=False,
-                         dropout_p=0.0, compute_dtype=compute_dtype, use_pallas=use_pallas,
-                         affine=False)
+                         dropout_p=0.0, compute_dtype=compute_dtype, affine=False)
         to_monai = _renamer(self.KEYS)
         from_monai = _renamer([(b, a) for a, b in self.KEYS])
         self.register_state_dict_post_hook(lambda m, sd, prefix, meta: to_monai(sd, prefix))
@@ -370,12 +368,11 @@ class UnetResBlock(ResidualBlock):
 class UnetrUpBlock(nn.Module):
     """2^3 stride-2 transposed conv (no bias), ``cat[up, skip]``, ``UnetResBlock``."""
 
-    def __init__(self, in_ch: int, features: int, compute_dtype=torch.float32,
-                 use_pallas: bool = False):
+    def __init__(self, in_ch: int, features: int, compute_dtype=torch.float32):
         super().__init__()
         self.transp_conv = _named(conv=ConvTranspose3d(in_ch, features, 2, stride=2, bias=False,
                                                        compute_dtype=compute_dtype))
-        self.conv_block = UnetResBlock(2 * features, features, compute_dtype, use_pallas)
+        self.conv_block = UnetResBlock(2 * features, features, compute_dtype)
 
     def forward(self, x, skip):
         return self.conv_block(torch.cat([self.transp_conv(x), skip], dim=-1))
@@ -387,36 +384,27 @@ class SwinUNETR(nn.Module):
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1, feature_size: int = 48,
                  depths: Sequence[int] = (2, 2, 2, 2), num_heads: Sequence[int] = (3, 6, 12, 24),
-                 window_size: int = 7, mlp_ratio: float = 4.0, compute_dtype=torch.float32,
-                 use_pallas: bool = False):
+                 window_size: int = 7, mlp_ratio: float = 4.0, compute_dtype=torch.float32):
         super().__init__()
         fs, dt = feature_size, compute_dtype
         self.compute_dtype = compute_dtype
-        self.use_pallas = use_pallas
         self.swinViT = SwinViT(in_channels, fs, depths, num_heads, window_size, mlp_ratio, dt)
 
         def basic(cin, c):  # MONAI's UnetrBasicBlock: a UnetResBlock named ``layer``
-            return _named(layer=UnetResBlock(cin, c, dt, use_pallas))
+            return _named(layer=UnetResBlock(cin, c, dt))
 
         self.encoder1 = basic(in_channels, fs)
         self.encoder2 = basic(fs, fs)
         self.encoder3 = basic(2 * fs, 2 * fs)
         self.encoder4 = basic(4 * fs, 4 * fs)
         self.encoder10 = basic(16 * fs, 16 * fs)
-        self.decoder5 = UnetrUpBlock(16 * fs, 8 * fs, dt, use_pallas)
-        self.decoder4 = UnetrUpBlock(8 * fs, 4 * fs, dt, use_pallas)
-        self.decoder3 = UnetrUpBlock(4 * fs, 2 * fs, dt, use_pallas)
-        self.decoder2 = UnetrUpBlock(2 * fs, fs, dt, use_pallas)
-        self.decoder1 = UnetrUpBlock(fs, fs, dt, use_pallas)
+        self.decoder5 = UnetrUpBlock(16 * fs, 8 * fs, dt)
+        self.decoder4 = UnetrUpBlock(8 * fs, 4 * fs, dt)
+        self.decoder3 = UnetrUpBlock(4 * fs, 2 * fs, dt)
+        self.decoder2 = UnetrUpBlock(2 * fs, fs, dt)
+        self.decoder1 = UnetrUpBlock(fs, fs, dt)
         # float32, as the lightweight U-Net's head
         self.out = _named(conv=_named(conv=Conv3d(fs, out_channels, 1, bias=True)))
-
-    @property
-    def route(self) -> str:
-        """The inference route a unit's graph key records: ``use_pallas`` when
-        built with that gate, else ``plain`` (both run the decoder's inference
-        norms on the norm kernel)."""
-        return "use_pallas" if self.use_pallas else "plain"
 
     def forward(self, x):
         counts["forwards"] += 1
@@ -436,11 +424,9 @@ class SwinUNETR(nn.Module):
             return torch.sigmoid(self.out(out).float())
 
 
-def build_swin_unetr(model_cfg, compute_dtype=torch.float32, use_pallas: bool = False
-                     ) -> SwinUNETR:
+def build_swin_unetr(model_cfg, compute_dtype=torch.float32) -> SwinUNETR:
     """The model of a validated ``ModelConfig`` named ``SwinUNETR``."""
     return SwinUNETR(in_channels=1, out_channels=model_cfg.output_channels,
                      feature_size=model_cfg.feature_size, depths=tuple(model_cfg.depths),
                      num_heads=tuple(model_cfg.num_heads), window_size=model_cfg.window_size,
-                     mlp_ratio=model_cfg.mlp_ratio, compute_dtype=compute_dtype,
-                     use_pallas=use_pallas)
+                     mlp_ratio=model_cfg.mlp_ratio, compute_dtype=compute_dtype)

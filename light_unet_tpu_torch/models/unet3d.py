@@ -11,7 +11,7 @@ convolution runs on the ``[B, C, D, H, W]`` view of that memory (which is
 depthwise 3x3x3 convs in inference, which run the hand-written kernel of
 ``ops/depthwise_kernel.py`` on ``[B, D, H, W, C]`` itself.  The two
 inference-only kernels a module takes (that one, and the fused norm kernel
-of ``ops/norm_kernel.py`` for every InstanceNorm, on either route) have no
+of ``ops/norm_kernel.py`` for every InstanceNorm) have no
 backward: ``runs_inference`` is the one rule for both.  Parameter names
 and shapes are the reference torch model's, so a reference ``.pth`` or
 ``tools.weights.from_jax_params(...)`` loads with ``strict=True``.
@@ -107,17 +107,14 @@ class InstanceNorm(nn.Module):
 
     torch ``InstanceNorm3d(C, affine=affine)`` semantics, statistics in
     float32, output in the input dtype.  Inference (``runs_inference``) goes
-    through ``ops/norm_kernel.py:fused_instance_norm_leaky_relu``, on either
-    route: the hand-written kernel on a card, the plain version on the CPU.
-    A non-affine norm gives it a unit scale and a zero bias, made once per
-    device.  Training forwards keep the plain version.  ``use_pallas`` (the
-    JAX package's name for its gate) only names the route (``route``, the
-    graph key); ``fuse_leaky`` folds the following LeakyReLU in (slope 1.0
-    otherwise).
+    through ``ops/norm_kernel.py:fused_instance_norm_leaky_relu``: the
+    hand-written kernel on a card, the plain version on the CPU.  A
+    non-affine norm gives it a unit scale and a zero bias, made once per
+    device.  Training forwards keep the plain version.  ``fuse_leaky`` folds
+    the following LeakyReLU in (slope 1.0 otherwise).
     """
 
-    def __init__(self, channels: int, use_pallas: bool = False, fuse_leaky: bool = False,
-                 affine: bool = True):
+    def __init__(self, channels: int, fuse_leaky: bool = False, affine: bool = True):
         super().__init__()
         if affine:
             self.weight = nn.Parameter(torch.ones(channels))
@@ -126,7 +123,6 @@ class InstanceNorm(nn.Module):
             self.register_parameter("weight", None)
             self.register_parameter("bias", None)
         self.channels = channels
-        self.use_pallas = use_pallas
         self.slope = LEAKY_SLOPE if fuse_leaky else 1.0
         self._unit = {}  # device -> (unit scale, zero bias) of a non-affine norm
 
@@ -194,20 +190,20 @@ class ResidualBlock(nn.Module):
 
     def __init__(self, in_ch: int, features: int, use_depthwise_separable: bool = True,
                  use_grouped: bool = True, groups: int = 8, dropout_p: float = 0.1,
-                 compute_dtype=torch.float32, use_pallas: bool = False, affine: bool = True):
+                 compute_dtype=torch.float32, affine: bool = True):
         super().__init__()
         self.use_depthwise_separable = use_depthwise_separable
         self.compute_dtype = compute_dtype
         self.conv1 = self._conv(in_ch, features, use_grouped, groups)
-        self.norm1 = InstanceNorm(features, use_pallas, fuse_leaky=True, affine=affine)
+        self.norm1 = InstanceNorm(features, fuse_leaky=True, affine=affine)
         self.dropout = ChannelDropout(dropout_p) if dropout_p > 0 else None
         self.conv2 = self._conv(features, features, use_grouped, groups)
-        self.norm2 = InstanceNorm(features, use_pallas, affine=affine)
+        self.norm2 = InstanceNorm(features, affine=affine)
         self.shortcut = None
         if in_ch != features:
             self.shortcut = nn.Sequential(
                 Conv3d(in_ch, features, 1, bias=False, compute_dtype=compute_dtype),
-                InstanceNorm(features, use_pallas, affine=affine),
+                InstanceNorm(features, affine=affine),
             )
 
     def _conv(self, in_ch, features, use_grouped, groups):
@@ -272,15 +268,13 @@ class Lightweight3DUNet(nn.Module):
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  encoder_channels: Sequence[int] = (16, 32, 64, 128),
                  use_depthwise_separable: bool = True, use_grouped: bool = True,
-                 groups: int = 8, dropout_p: float = 0.1, compute_dtype=torch.float32,
-                 use_pallas: bool = False):
+                 groups: int = 8, dropout_p: float = 0.1, compute_dtype=torch.float32):
         super().__init__()
         ch = list(encoder_channels)
         self.compute_dtype = compute_dtype
         self.use_depthwise_separable = use_depthwise_separable
         kw = dict(use_depthwise_separable=use_depthwise_separable, use_grouped=use_grouped,
-                  groups=groups, dropout_p=dropout_p, compute_dtype=compute_dtype,
-                  use_pallas=use_pallas)
+                  groups=groups, dropout_p=dropout_p, compute_dtype=compute_dtype)
         # the first block never uses grouped conv (depthwise-separable still allowed)
         self.init_conv = ResidualBlock(in_channels, ch[0], **{**kw, "use_grouped": False})
         self.down1 = DownBlock(ch[0], ch[1], **kw)
@@ -291,13 +285,6 @@ class Lightweight3DUNet(nn.Module):
         self.up2 = UpBlock(ch[2], ch[1], **kw)
         self.up3 = UpBlock(ch[1], ch[0], **kw)
         self.out_conv = Conv3d(ch[0], out_channels, 1, bias=True)  # float32, as flax promotes
-
-    @property
-    def route(self) -> str:
-        """The inference route a sliding window's graph key records:
-        ``use_pallas`` when built with that gate, else ``plain`` (both run
-        their inference norms on the norm kernel)."""
-        return "use_pallas" if self.init_conv.norm1.use_pallas else "plain"
 
     def forward(self, x):
         x = x.to(self.compute_dtype)
@@ -316,14 +303,15 @@ def build_model(model_cfg, compute_dtype=torch.float32, inference: bool = False,
                 use_pallas: bool = False) -> nn.Module:
     """Construct the model that ``model_cfg.name`` names from a ``ModelConfig``:
     the lightweight U-Net (same switches as the JAX package's ``build_model``)
-    or, for inference only, ``models/swin_unetr.py:SwinUNETR``."""
+    or, for inference only, ``models/swin_unetr.py:SwinUNETR``.  ``use_pallas``
+    is ignored: ``cellbench/drivers/serve_raw.py`` still passes it."""
     if model_cfg.name == "SwinUNETR":
         from light_unet_tpu_torch.models.swin_unetr import build_swin_unetr
 
         if not inference:
             raise ValueError("SwinUNETR is built for inference only: the port does not "
                              "train it")
-        return build_swin_unetr(model_cfg, compute_dtype, use_pallas)
+        return build_swin_unetr(model_cfg, compute_dtype)
     dropout = model_cfg.dropout_p if (model_cfg.use_dropout and not inference) else 0.0
     return Lightweight3DUNet(
         in_channels=1,
@@ -334,7 +322,6 @@ def build_model(model_cfg, compute_dtype=torch.float32, inference: bool = False,
         groups=model_cfg.groups,
         dropout_p=dropout,
         compute_dtype=compute_dtype,
-        use_pallas=use_pallas,
     )
 
 

@@ -17,10 +17,9 @@ graph replay per key, the JAX program's static arguments with the bucketed
 shape (``utils/graphs.py``); ``graphs=False`` runs the same unit eagerly, as
 does the preprocess pass when its caller passes no runner.
 
-The network is whatever ``apply_fn`` the caller passes: the model itself,
-built with ``use_pallas`` or without it (in eval mode both run every norm
-on the fused norm kernel), or ``models/fused_forward.make_fused_apply``
-(the fused block kernel).
+The network is whatever ``apply_fn`` the caller passes: the model itself
+(in eval mode it runs every norm on the fused norm kernel), or
+``models/fused_forward.make_fused_apply`` (the fused block kernel).
 """
 
 from __future__ import annotations
@@ -210,7 +209,7 @@ class FusedVolumePipeline:
     device's work on case i; ``dispatch`` enqueues the program and returns
     at once (no host sync); ``fetch`` waits for the map and returns it on
     the host.  On a card the program is one CUDA graph replay per key (the
-    JAX program's static arguments, the bucketed shape and the route);
+    JAX program's static arguments, the bucketed shape and the network);
     ``graphs=False`` runs it eagerly (the reference path)."""
 
     def __init__(self, apply_fn: Callable, config, patch_batch: int = 96, transfer_dtype=None,

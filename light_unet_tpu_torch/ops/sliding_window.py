@@ -45,7 +45,7 @@ weights, the true extents, the value range and the post mask are device
 data (``prepare`` uploads them), and nothing inside reads a value on the
 host, so on a card each unit is one CUDA graph replay (``utils/graphs.py``)
 per key: the JAX program's static arguments (chunk, tail, flags, caps)
-with the padded shapes, route and compute dtype.  Over an NCCL mesh the
+with the padded shapes, the network and its compute dtype.  Over an NCCL mesh the
 graph holds the collectives; a gloo mesh (host-staged collectives) and
 ``graphs=False`` (the reference path) run the same unit eagerly, so
 graphed and eager are equal by construction.  The CPU has no graphs.

@@ -248,14 +248,15 @@ def _as_tuple(out) -> Tuple[torch.Tensor, ...]:
 
 
 def unit_key(unit: str, apply_fn=None, **static) -> tuple:
-    """A unit's graph key: its name; the route and compute dtype of the
-    network ``apply_fn`` it runs (a model that ``models.unet3d.build_model``
-    returns, ``Lightweight3DUNet`` or ``SwinUNETR``, or ``make_fused_apply``'s
-    function), the float32 convolutions' TF32 flag and the function itself;
-    then its static arguments as (name, value) pairs.
+    """A unit's graph key: its name; the compute dtype of the network
+    ``apply_fn`` it runs (a model that ``models.unet3d.build_model`` returns,
+    ``Lightweight3DUNet`` or ``SwinUNETR``, or ``make_fused_apply``'s
+    function), the float32 convolutions' TF32 flag and the function's
+    identity, which tells the model's route from ``fused_block``'s; then its
+    static arguments as (name, value) pairs.
     ``run_unit`` appends the shapes and dtypes of the inputs."""
-    return (unit, getattr(apply_fn, "route", None), getattr(apply_fn, "compute_dtype", None),
-            torch.backends.cudnn.allow_tf32, id(apply_fn)) + tuple(sorted(static.items()))
+    return (unit, getattr(apply_fn, "compute_dtype", None), torch.backends.cudnn.allow_tf32,
+            id(apply_fn)) + tuple(sorted(static.items()))
 
 
 def run_unit(runner: Optional["GraphRunner"], key: tuple, fn: Callable,

@@ -76,7 +76,7 @@ def rank_main(rank: int, n: int, init: str, work: str) -> None:
         cfg = {"data": {"patch_size": [16, 16, 16], "body_mask": {"enabled": False}},
                "tpu": {"compute_dtype": dtype, "patch_batch": 8, "z_bucket": 16,
                        "steps_per_dispatch": 4, "separable_augment": True,
-                       "batch_per_device": True, "shard_corpus": True, "use_pallas": True,
+                       "batch_per_device": True, "shard_corpus": True,
                        **fields},
                "training": {"batch_size": 2, "learning_rate": 1e-3, "use_warmup": False},
                "data_dir": str(work / "proc"), "splits_dir": str(work / "splits")}

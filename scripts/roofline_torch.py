@@ -17,13 +17,13 @@ the H100 SXM at its full 700 W; the rates behind ``PERF.md``'s kernel
 bounds), printed beside nvidia-smi's name and power limit.
 
     python3 scripts/roofline_torch.py                              # the plain route
-    python3 scripts/roofline_torch.py --route plain fused_block use_pallas
+    python3 scripts/roofline_torch.py --route plain fused_block
     python3 scripts/roofline_torch.py --device cpu                 # the CPU (no device numbers)
 
-``--route``: ``plain`` (the model's convolutions, as the JAX script times
-the lax forward), ``fused_block`` and ``use_pallas`` (the YAML's gates: the
-block kernel, the norm kernel).  It imports nothing of JAX and nothing of
-the JAX package.
+``--route``: ``plain`` (the model's inference forward: the norm and
+depthwise kernels beside the other convolutions, as the JAX script times
+the lax forward) and ``fused_block`` (the YAML's gate: the block kernel).
+It imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ H100_HBM_BYTES = 3.35e12
 BATCH = 96
 PATCH = 48
 TIMED = 10
-ROUTES = {"plain": {}, "fused_block": {"fused_block": True}, "use_pallas": {"use_pallas": True}}
+ROUTES = {"plain": {}, "fused_block": {"fused_block": True}}
 
 
 def plain_flop_count(cfg, batch: int) -> int:

@@ -235,7 +235,7 @@ def _check_link_opts(rows):
 
 
 def _check_roofline(rows):
-    assert [r["route"] for r in rows] == ["plain", "fused_block", "use_pallas"]
+    assert [r["route"] for r in rows] == ["plain", "fused_block"]
     mc = tiny_config().model
     flops, bytes_ = cost.forward_cost(mc, 2, 16, torch.bfloat16)
     for r in rows:
@@ -253,7 +253,7 @@ SCRIPT_RUNS = {
                          "--batches", "2", "--ks", "1", "2", "--pbatches", "4", "8",
                          "--tail-pbatch", "12"], _check_link_opts),
     "roofline": ({"PATCH": 16, "TIMED": 2, "BATCH": 2},
-                 ["--route", "plain", "fused_block", "use_pallas"], _check_roofline),
+                 ["--route", "plain", "fused_block"], _check_roofline),
 }
 
 

@@ -588,21 +588,19 @@ def no_plain_norm_on_cuda(monkeypatch):
     monkeypatch.setattr(unet3d, "reference_instance_norm_leaky_relu", cpu_only)
 
 
-@pytest.mark.parametrize("route", ["plain", "use_pallas"])
-def test_an_eval_forward_takes_the_norm_kernel_on_either_route(gen, no_plain_norm_on_cuda, route):
+def test_an_eval_forward_takes_the_norm_kernel(gen, no_plain_norm_on_cuda):
     """A bf16 eval forward without grad launches the norm kernel once a norm
-    (23) and never runs the plain chain, on either route; the two routes
-    give the same map bit for bit."""
+    (23) and never runs the plain chain; two models of the same weights give
+    the same map bit for bit."""
     x = torch.rand((2, 48, 48, 48, 1), generator=gen, device="cuda")
-    outs = {}
-    for r in (route, "use_pallas" if route == "plain" else "plain"):
-        model, _ = _route_fn(r, torch.bfloat16)
-        assert model.route == r
+    outs = []
+    for _ in range(2):
+        model, _ = _route_fn("plain", torch.bfloat16)
         n = norm_kernel.launches
         with torch.no_grad():
-            outs[r] = model(x)
+            outs.append(model(x))
         assert norm_kernel.launches - n == 23
-    assert torch.equal(outs["plain"], outs["use_pallas"])
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_a_forward_autograd_records_launches_no_norm_kernel(gen):
@@ -620,14 +618,13 @@ def test_a_forward_autograd_records_launches_no_norm_kernel(gen):
 
 
 def _route_fn(route, dtype):
-    model = init_weights(build_model(ModelConfig(), dtype, inference=True,
-                                     use_pallas=route == "use_pallas"),
+    model = init_weights(build_model(ModelConfig(), dtype, inference=True),
                          torch.Generator().manual_seed(7)).cuda().eval()
     return model, (make_fused_apply(model) if route == "fused_block" else model)
 
 
 @pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-6), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("route", ["fused_block", "use_pallas", "plain"])
+@pytest.mark.parametrize("route", ["fused_block", "plain"])
 def test_chunk_forward_graph_follows_a_weight_change(gen, route, dtype, bar):
     """A chunk forward captured, replayed, then replayed again after an
     in-place weight update agrees with the eager forward on the new weights
@@ -657,7 +654,7 @@ def test_chunk_forward_graph_follows_a_weight_change(gen, route, dtype, bar):
     assert (got - before).abs().max() > 10 * max(err, 1e-6)
 
 
-@pytest.mark.parametrize("route", ["fused_block", "use_pallas", "plain"])
+@pytest.mark.parametrize("route", ["fused_block", "plain"])
 def test_chunk_forward_replays_count_kernel_launches(gen, route):
     """Each replay adds the launches one eager forward makes to the kernel's
     counter; the capture adds none."""
@@ -759,7 +756,7 @@ def _units_eager_and_graphed(make, run):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("route", ["fused_block", "use_pallas", "plain"])
+@pytest.mark.parametrize("route", ["fused_block", "plain"])
 def test_window_unit_graphed_equals_eager_with_no_host_sync(gen, route, dtype):
     """Every flag on (uint16 in and out, sparse fetch, a packed body mask):
     two volumes of one bucket, graphed and eager, bit-identical, and the

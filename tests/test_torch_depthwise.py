@@ -123,30 +123,43 @@ def test_a_recording_input_alone_takes_conv3d():
     assert dk.plain_calls == calls + 1
 
 
-@pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "use_pallas"])
+# (model config, depthwise convs and norms of an inference forward)
+RULE_MODELS = {"unet": (dict(), 16, 23),
+               "swin_unetr": (dict(name="SwinUNETR", feature_size=12), 0, 26)}
+
+
+@pytest.mark.parametrize("model", sorted(RULE_MODELS))
 @pytest.mark.parametrize("train,grad", [(False, False), (False, True), (True, False),
                                         (True, True)], ids=["eval-no_grad", "eval-grad",
                                                             "train-no_grad", "train-grad"])
-def test_one_rule_decides_both_inference_kernels(monkeypatch, train, grad, use_pallas):
+def test_one_rule_decides_both_inference_kernels(monkeypatch, train, grad, model):
     """``runs_inference`` (eval mode, autograd recording nothing) sends the
-    depthwise convs to the wrapper and, on either route, the norms to the
-    norm kernel; any other forward keeps both plain modules."""
+    depthwise convs to the wrapper and the norms to the norm kernel, in the
+    U-Net and in SwinUNETR's decoder; any other forward keeps both plain
+    modules."""
     from light_unet_tpu_torch.models import unet3d
 
+    over, want_dw, want_norms = RULE_MODELS[model]
     norms = []
     kernel = unet3d.fused_instance_norm_leaky_relu
     monkeypatch.setattr(unet3d, "fused_instance_norm_leaky_relu",
                         lambda *a, **k: norms.append(1) or kernel(*a, **k))
-    model = init_weights(build_model(ModelConfig(), torch.float32, inference=True,
-                                     use_pallas=use_pallas), torch.Generator().manual_seed(3))
-    model.train(train)
-    x = torch.rand((1, 16, 16, 16, 1), generator=torch.Generator().manual_seed(0))
+    model_cfg = ModelConfig(**over)
+    model_cfg.validate()
+    net = init_weights(build_model(model_cfg, torch.float32, inference=True),
+                       torch.Generator().manual_seed(3))
+    if model == "swin_unetr":
+        # the encoder writes its attention masks in place, which autograd
+        # refuses (the port serves SwinUNETR only); the decoder still records
+        net.swinViT.requires_grad_(False)
+    net.train(train)
+    x = torch.rand((1, 32, 32, 32, 1), generator=torch.Generator().manual_seed(0))
     calls = dk.plain_calls
     with torch.set_grad_enabled(grad):
-        model(x)
+        net(x)
     inference = not train and not grad
-    assert dk.plain_calls - calls == (16 if inference else 0)
-    assert len(norms) == (23 if inference else 0)
+    assert dk.plain_calls - calls == (want_dw if inference else 0)
+    assert len(norms) == (want_norms if inference else 0)
 
 
 def test_grouped_and_plain_convs_do_not_take_the_wrapper():

@@ -166,22 +166,50 @@ def test_host_batch_unit_makes_no_host_sync(tree, mode):
 
 def _model(route, dtype=torch.float32):
     cfg = Config.from_dict({"model": {"encoder_channels": [4, 8, 16, 32], "groups": 4}})
-    model = build_model(cfg.model, dtype, inference=True, use_pallas=route == "use_pallas")
+    model = build_model(cfg.model, dtype, inference=True)
     init_weights(model, torch.Generator().manual_seed(2)).eval()
     return make_fused_apply(model) if route == "fused_block" else model
 
 
-@pytest.mark.parametrize("route", ["fused_block", "use_pallas", "plain"])
+@pytest.mark.parametrize("route", ["fused_block", "plain"])
 def test_chunk_forward_makes_no_host_sync(route):
     """One chunk's forward, as the window captures it, in each route (the
-    kernels' plain versions on the CPU)."""
+    kernels' plain versions on the CPU); the unit's key holds the network's
+    identity, which tells the two routes apart."""
     apply_fn = _model(route)
     chunk = torch.from_numpy(np.random.default_rng(0).random((8, 16, 16, 16), np.float32))
     with torch.no_grad(), HostSyncRecorder() as rec:
         out = chunk_forward(apply_fn, chunk)
     assert rec.found == []
     assert out.shape == chunk.shape and out.dtype == torch.float32
-    assert graphs.unit_key("window", apply_fn)[1] == route
+    assert graphs.unit_key("window", apply_fn)[1:4:2] == (torch.float32, id(apply_fn))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_the_use_pallas_key_selects_nothing(tmp_path, use_pallas):
+    """``tpu.use_pallas`` is read and ignored: the models that ``bench`` and
+    ``Inferencer`` build under it have the default config's parameter names
+    and its CPU outputs bit for bit, and their graph keys differ from the
+    default model's in the network's identity alone."""
+    from light_unet_tpu_torch import bench
+    from light_unet_tpu_torch.core.inferencer import Inferencer
+
+    ref, _ = bench.seeded_model(Config(), "cpu")
+    cfg = Config.from_dict({"tpu": {"use_pallas": use_pallas}})
+    model, apply_fn = bench.seeded_model(cfg, "cpu")
+    path = tmp_path / "best_model.pth"
+    torch.save({"model_state_dict": ref.state_dict(), "epoch": 0}, path)
+    inf = Inferencer(cfg, path, workdir=str(tmp_path), device="cpu")
+    names = [n for n, _ in ref.named_parameters()]
+    x = torch.rand((1, 16, 16, 16, 1), generator=torch.Generator().manual_seed(0))
+    ref_key = graphs.unit_key("window", ref, chunk=2)
+    with torch.no_grad():
+        want = ref(x)
+        for net, fn in ((model, apply_fn), (inf.model, inf.sw.apply_fn)):
+            assert fn is net and [n for n, _ in net.named_parameters()] == names
+            assert torch.equal(net(x), want)
+            key = graphs.unit_key("window", fn, chunk=2)
+            assert key[:3] + key[4:] == ref_key[:3] + ref_key[4:] and key[3] == id(fn)
 
 
 def _baked(tr):

@@ -114,14 +114,3 @@ def test_fused_apply_matches_jax_fused_apply(rng):
     got = make_fused_apply(model)(torch.from_numpy(x)).numpy()
     assert np.abs(got - want).max() <= 1e-4
 
-
-def test_use_pallas_gate_on_cpu_is_the_plain_norm(rng):
-    """``tpu.use_pallas`` keeps the parameters and, on CPU tensors, the
-    plain norm's numerics exactly."""
-    mc = ModelConfig()
-    x = torch.from_numpy(rng.random((1, 16, 16, 16, 1), np.float32))
-    plain = build_model(mc, torch.float32, inference=True).eval()
-    gated = build_model(mc, torch.float32, inference=True, use_pallas=True).eval()
-    gated.load_state_dict(plain.state_dict(), strict=True)
-    with torch.no_grad():
-        torch.testing.assert_close(gated(x), plain(x), rtol=0, atol=0)

@@ -1,7 +1,7 @@
 """PyTorch port on the CPU: which InstanceNorms take the fused norm kernel's
 wrapper (``ops/norm_kernel.py:fused_instance_norm_leaky_relu``).  Every
-inference norm does, on either route (``use_pallas`` only names the route),
-affine or not; training forwards and forwards that autograd records through
+inference norm does, affine or not, with the LeakyReLU folded in or not;
+training forwards and forwards that autograd records through
 keep the plain chain; a non-affine norm's unit scale and zero bias are made
 once per device; and on the CPU, where the wrapper runs the plain chain,
 every output is what the plain chain gives, bit for bit."""
@@ -18,12 +18,13 @@ from light_unet_tpu_torch.ops.norm_kernel import IN_EPS, reference_instance_norm
 @pytest.fixture
 def calls(monkeypatch):
     """The wrapper's and the plain chain's calls, as the model makes them."""
-    seen = {"kernel": [], "plain": []}
+    seen = {"kernel": [], "plain": [], "slopes": []}
     kernel = unet3d.fused_instance_norm_leaky_relu
     plain = unet3d.reference_instance_norm_leaky_relu
 
     def kernel_call(x, scale, bias, **kw):
         seen["kernel"].append((scale, bias))
+        seen["slopes"].append(kw["negative_slope"])
         return kernel(x, scale, bias, **kw)
 
     def plain_call(*a, **kw):
@@ -35,8 +36,8 @@ def calls(monkeypatch):
     return seen
 
 
-def _norm(affine, use_pallas, fuse_leaky=True, c=6):
-    norm = InstanceNorm(c, use_pallas=use_pallas, fuse_leaky=fuse_leaky, affine=affine)
+def _norm(affine, fuse_leaky=True, c=6):
+    norm = InstanceNorm(c, fuse_leaky=fuse_leaky, affine=affine)
     if affine:
         gen = torch.Generator().manual_seed(1)
         with torch.no_grad():
@@ -51,14 +52,17 @@ def _x(dtype=torch.float32, c=6):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "use_pallas"])
+@pytest.mark.parametrize("fuse_leaky", [True, False], ids=["leaky", "no-leaky"])
 @pytest.mark.parametrize("affine", [True, False], ids=["affine", "non-affine"])
-def test_an_inference_norm_calls_the_kernel_wrapper(calls, affine, use_pallas, dtype):
-    norm = _norm(affine, use_pallas)
+def test_an_inference_norm_calls_the_kernel_wrapper(calls, affine, fuse_leaky, dtype):
+    """The wrapper gets the norm's slope: LeakyReLU's 0.01 folded in, else
+    1.0 (the identity)."""
+    norm = _norm(affine, fuse_leaky)
     x = _x(dtype)
     with torch.no_grad():
         got = norm(x)
     assert len(calls["kernel"]) == 1 and not calls["plain"]
+    assert calls["slopes"] == [unet3d.LEAKY_SLOPE if fuse_leaky else 1.0]
     scale, bias = calls["kernel"][0]
     if affine:
         assert scale is norm.weight and bias is norm.bias
@@ -77,7 +81,7 @@ def test_training_and_recorded_forwards_keep_the_plain_chain(calls, affine, case
     (``runs_inference`` false), runs the plain chain; a non-affine norm in
     eval mode with grad on and an input that needs none has nothing to
     record and takes the wrapper."""
-    norm = _norm(affine, use_pallas=False)
+    norm = _norm(affine)
     norm.train(case.startswith("train"))
     x = _x().requires_grad_(case == "eval-input")
     with torch.set_grad_enabled(case != "train-no_grad"):
@@ -90,7 +94,7 @@ def test_training_and_recorded_forwards_keep_the_plain_chain(calls, affine, case
 
 
 def test_unit_scale_and_bias_are_made_once_per_device(calls, monkeypatch):
-    norm = _norm(affine=False, use_pallas=False)
+    norm = _norm(affine=False)
     made = []
     ones = torch.ones
     monkeypatch.setattr(torch, "ones", lambda *a, **k: made.append(1) or ones(*a, **k))

@@ -158,14 +158,14 @@ def test_parameter_count_at_the_published_widths():
     with torch.device("meta"):
         model = build_model(cfg.model, torch.bfloat16, inference=True)
     assert sum(p.numel() for p in model.parameters()) == PUBLISHED_PARAMS
-    assert model.route == "plain" and model.compute_dtype == torch.bfloat16
+    assert model.compute_dtype == torch.bfloat16
 
 
 def test_the_shipped_yaml_serves_a_volume_in_one_chunk():
     cfg = Config.load(SWIN_YAML)
     assert cfg.data.patch_size == [96, 96, 96] and cfg.tpu.patch_batch == 20
     assert (cfg.tpu.compute_dtype, cfg.tpu.transfer_dtype, cfg.tpu.sparse_fetch,
-            cfg.tpu.use_pallas, cfg.tpu.fused_block) == ("bfloat16", "uint16", True, False, False)
+            cfg.tpu.fused_block) == ("bfloat16", "uint16", True, False)
     shape = (144, 144, 272)
     assert bucketed_shape(shape, (96, 96, 96), cfg.tpu.z_bucket) == (144, 144, 288)
     n = len(compute_positions(shape, (96, 96, 96), 0.5))
@@ -358,7 +358,7 @@ def test_spans_of_a_forward(nets):
 def test_shared_modules_keep_the_lightweight_model():
     """The norm and transposed-conv repairs leave the U-Net's parameters,
     names and graph keys as they were; a non-affine norm has no parameters
-    and computes ``F.instance_norm``, on either route."""
+    and computes ``F.instance_norm``."""
     mc = ModelConfig()
     model = build_model(mc, torch.bfloat16, inference=True)
     state = model.state_dict()
@@ -367,14 +367,13 @@ def test_shared_modules_keep_the_lightweight_model():
     again = build_model(mc, torch.bfloat16, inference=True)
     again.load_state_dict(state, strict=True)
     key = unit_key("fused", model, chunk=192)
-    assert key[:4] == ("fused", "plain", torch.bfloat16, torch.backends.cudnn.allow_tf32)
-    assert key[5:] == (("chunk", 192),)
+    assert key == ("fused", torch.bfloat16, torch.backends.cudnn.allow_tf32, id(model),
+                   ("chunk", 192))
     x = torch.randn(2, 5, 6, 7, 4, generator=torch.Generator().manual_seed(4))
     want = F.instance_norm(x.permute(0, 4, 1, 2, 3), eps=1e-5).permute(0, 2, 3, 4, 1)
-    for use_pallas in (False, True):
-        norm = InstanceNorm(4, use_pallas=use_pallas, affine=False).eval()
-        assert not list(norm.parameters())
-        assert torch.allclose(norm(x), want, atol=1e-5)
+    norm = InstanceNorm(4, affine=False).eval()
+    assert not list(norm.parameters())
+    assert torch.allclose(norm(x), want, atol=1e-5)
     up = ConvTranspose3d(4, 3, 2, stride=2, bias=False)
     assert up.bias is None and up(x).shape == (2, 10, 12, 14, 3)
 

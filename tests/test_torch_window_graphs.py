@@ -409,7 +409,7 @@ def jax_static_argnames() -> dict:
 def key_names(key: tuple) -> set:
     """The static argument names of a ``graphs.unit_key`` (with or without
     the input signature that ``run_unit`` appends)."""
-    return {item[0] for item in key[5:] if isinstance(item[0], str)}
+    return {item[0] for item in key[4:] if isinstance(item[0], str)}
 
 
 def _keys_of(monkeypatch, run) -> list:
@@ -426,7 +426,7 @@ def _keys_of(monkeypatch, run) -> list:
 def test_units_map_to_the_jax_programs(monkeypatch):
     """The static names of each unit's key are the JAX program's static
     arguments, less ``apply_fn`` and ``patch_size`` (one network and patch a
-    runner: the key holds the network's route, dtype and identity)."""
+    runner: the key holds the network's dtype and identity)."""
     jax_names = jax_static_argnames()
     engine_level = {"apply_fn", "patch_size"}
     vol, body, z_bucket = _case("packed")
@@ -488,5 +488,5 @@ def test_every_flag_combination_is_its_own_key(monkeypatch):
     keys = set()
     for dequant, quantize, sparse in itertools.product((False, True), repeat=3):
         engine = _engine(port_net, z_bucket, 12, dequant, quantize, sparse)
-        keys.add(engine.unit(engine.prepare(vol, body))[0][5:])
+        keys.add(engine.unit(engine.prepare(vol, body))[0][4:])
     assert len(keys) == 8
