@@ -5,7 +5,9 @@
 // entries and the same results bit for bit: gzip inflate + dtype conversion
 // + scl_slope/inter scaling outside the Python GIL, a thread pool for a
 // batch of files, exact order statistics for the clip percentiles, and the
-// single-pass uint16 quantize + pad of the serving upload.
+// single-pass uint16 quantize + pad of the serving upload.  The order
+// statistics are a radix select, not the JAX library's nth_element: the same
+// values, a zero returned as +0.0.
 //
 // The inflate is this file's own (RFC 1951 / RFC 1952), because a GPU host
 // may have a C++ compiler but neither zlib's nor libdeflate's headers.  It
@@ -724,6 +726,25 @@ int64_t decode_one(const char* path, float* dst, int64_t cap_voxels, uint8_t* hd
   return kErrAlloc;
 }
 
+// A finite float32 as a uint32 key that sorts as the floats do: a negative
+// float has every bit flipped, a non-negative one its sign bit set, and -0.0
+// (key 0x7fffffff) takes +0.0's key, as the two tie under a sort.
+constexpr int kKeyBins = 1 << 16;
+
+inline uint32_t order_key(float v) {
+  uint32_t bits;
+  std::memcpy(&bits, &v, sizeof bits);
+  const uint32_t key = bits ^ ((0u - (bits >> 31)) | 0x80000000u);
+  return key + (key == 0x7fffffffu);
+}
+
+inline float key_value(uint32_t key) {
+  const uint32_t bits = (key & 0x80000000u) ? (key & 0x7fffffffu) : ~key;
+  float v;
+  std::memcpy(&v, &bits, sizeof v);
+  return v;
+}
+
 }  // namespace
 
 extern "C" {
@@ -782,32 +803,52 @@ int64_t fastio_gunzip(const uint8_t* src, int64_t src_len, uint8_t* dst, int64_t
 
 // Exact order statistics for float32 data: for each requested 0-based rank
 // in idx[0..k) (sorted ascending, each in [0, n)), write the value that a
-// full ascending sort would place at that rank into out[i].  Works on a
-// scratch copy (data untouched); successive nth_element calls restrict to
-// the tail partition, so k small ranks cost ~k linear passes.  Non-finite
-// values (NaN breaks nth_element's strict weak order, inf the caller's
-// lerp) are detected while copying: kErrData, and the caller takes
-// np.percentile.  Returns 0, or a negative error on bad arguments or data.
+// full ascending sort would place at that rank into out[i].  A two-pass
+// radix select on order_key, reading the data in its stored order and
+// allocating nothing of size n:
+//   1. count the high 16 bits of every key (65,536 bins, 256 KB); a prefix
+//      walk gives each rank its high bin and its rank inside that bin;
+//   2. count the low 16 bits of the keys whose high bin holds a rank (at most
+//      k bins, 256 KB each); a second walk gives each rank's exact key.
+// Equal values are counts, so runs of them (a scan's zero background) need
+// nothing special.  Counts are 32-bit, so n is below 2^32.  Non-finite
+// values (NaN has no place in the order, inf breaks the caller's lerp) are
+// refused in pass 1: kErrData, and the caller takes np.percentile.  Returns
+// 0, or a negative error on bad arguments or data.
 int fastio_order_stats(const float* data, int64_t n, const int64_t* idx, int k, float* out) try {
-  if (n <= 0 || k <= 0) return kErrHeader;
+  if (n <= 0 || n > INT64_C(0xffffffff) || k <= 0) return kErrHeader;
   for (int i = 0; i < k; ++i) {
     if (idx[i] < 0 || idx[i] >= n) return kErrHeader;
     if (i > 0 && idx[i] < idx[i - 1]) return kErrHeader;
   }
-  std::vector<float> scratch(static_cast<size_t>(n));
+  std::vector<uint32_t> high(kKeyBins);
   for (int64_t i = 0; i < n; ++i) {
     if (!std::isfinite(data[i])) return kErrData;
-    scratch[i] = data[i];
+    ++high[order_key(data[i]) >> 16];
   }
-  int64_t start = 0;
+  // rank i lies in high bin bin[i], as the rest[i]-th key of that bin
+  std::vector<uint32_t> bin(k), rest(k);
+  int64_t below = 0;
+  for (int i = 0, b = 0; i < k; ++i) {
+    while (below + high[b] <= idx[i]) below += high[b++];
+    bin[i] = b;
+    rest[i] = static_cast<uint32_t>(idx[i] - below);
+  }
+  std::vector<int32_t> slot(kKeyBins, -1);  // a target bin's place in low
+  int32_t n_targets = 0;
+  for (int i = 0; i < k; ++i)
+    if (slot[bin[i]] < 0) slot[bin[i]] = n_targets++;
+  std::vector<uint32_t> low(static_cast<size_t>(n_targets) * kKeyBins);
+  for (int64_t i = 0; i < n; ++i) {
+    const uint32_t key = order_key(data[i]);
+    const int32_t t = slot[key >> 16];
+    if (t >= 0) ++low[static_cast<size_t>(t) * kKeyBins + (key & 0xffffu)];
+  }
   for (int i = 0; i < k; ++i) {
-    if (i > 0 && idx[i] == idx[i - 1]) {
-      out[i] = out[i - 1];
-      continue;
-    }
-    std::nth_element(scratch.begin() + start, scratch.begin() + idx[i], scratch.end());
-    out[i] = scratch[idx[i]];
-    start = idx[i] + 1;
+    const uint32_t* counts = low.data() + static_cast<size_t>(slot[bin[i]]) * kKeyBins;
+    uint32_t seen = 0, b = 0;
+    while (seen + counts[b] <= rest[i]) seen += counts[b++];
+    out[i] = key_value((bin[i] << 16) | b);
   }
   return kOk;
 } catch (...) {

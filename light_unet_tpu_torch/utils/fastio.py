@@ -19,7 +19,9 @@ raises ``nifti.NiftiError`` with the file and the error code, and a
 missing file raises ``FileNotFoundError``.
 
 ``calls`` counts the library's calls by entry (``decode`` counts files),
-so a run can show that its path went through the library.
+and ``percentile_plain`` the non-finite float32 inputs that ``percentiles``
+handed to ``np.percentile``, so a run can show that its path went through
+the library.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ _ENTRIES = {
 # the deflate format's largest expansion: 258 bytes from one 2-bit code
 _MAX_INFLATE_RATIO = 1032
 
-calls = {"decode": 0, "order_stats": 0, "quantize_pad": 0}
+calls = {"decode": 0, "order_stats": 0, "percentile_plain": 0, "quantize_pad": 0}
 _calls_lock = threading.Lock()  # decode workers count from several threads
 
 _lib = None
@@ -189,13 +191,16 @@ def percentiles(data: np.ndarray, qs: Sequence[float]) -> List[float]:
     """``[float(np.percentile(data, q)) for q in qs]``, bit for bit.
 
     For finite float32 data the two order statistics that linear
-    interpolation needs per quantile come from successive
-    ``std::nth_element`` selections on a scratch copy (no full sort).
+    interpolation needs per quantile come from the library's two-pass radix
+    select (no sort and no copy); a zero comes back as +0.0, equal to
+    numpy's as a value.
     numpy divides q by ``float32(100)`` for float32 data, so a Python-float
     q runs the rank and gamma chain in float32 and an ``np.float64`` q in
     float64; the arithmetic below is the same numpy scalar operations in
     the same order, so either q gives ``np.percentile``'s bits.
-    Non-float32, empty or non-finite data goes to ``np.percentile``.
+    Non-float32, empty or non-finite data goes to ``np.percentile``;
+    ``calls["percentile_plain"]`` counts the non-finite float32 inputs sent
+    there.
     """
     data = np.asarray(data)
     for q in qs:
@@ -230,6 +235,7 @@ def percentiles(data: np.ndarray, qs: Sequence[float]) -> List[float]:
         len(uniq), out.ctypes.data_as(ctypes.c_void_p))
     _count("order_stats")
     if rc == _ERR_DATA:  # NaN or inf: numpy's own handling
+        _count("percentile_plain")
         return [float(np.percentile(data, q)) for q in qs]
     if rc != 0:
         raise RuntimeError(f"fastio_order_stats failed with code {rc} ({ERRORS.get(rc)})")

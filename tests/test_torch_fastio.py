@@ -384,12 +384,89 @@ def test_garbage_file_raises_nifti_error(tmp_path):
 # ------------------------------------------------------------ percentiles
 
 
+def _normal(shape):
+    return (np.random.default_rng(9).standard_normal(shape) * 100).astype(np.float32)
+
+
+def _shuffled(*parts):
+    data = np.concatenate([np.asarray(p, np.float32) for p in parts])
+    return np.random.default_rng(11).permutation(data)
+
+
+def _zero_background():
+    """Half the voxels exactly 0.0; q 30 and 49.9 rank inside the zero run,
+    49.99 and 50 straddle its end and 50.03 lands just past it."""
+    return _shuffled(np.zeros(2000), np.random.default_rng(12).uniform(0.5, 3.0, 2000))
+
+
+def _signed_zeros():
+    """-0.0 and +0.0 mixed between negatives and positives; q 83.35
+    straddles the zeros' end."""
+    rng = np.random.default_rng(13)
+    return _shuffled(np.full(1000, -0.0), np.zeros(1000), -rng.uniform(1, 5, 500),
+                     rng.uniform(1, 5, 500))
+
+
+def _mixed_sign():
+    """Both signs over 60 decades, so the keys spread over many high bins."""
+    rng = np.random.default_rng(14)
+    return (rng.choice([-1.0, 1.0], 20000) * 10.0 ** rng.uniform(-30, 30, 20000)).astype(np.float32)
+
+
+def _denormals_and_extremes():
+    """Denormals of both signs beside -FLT_MAX and FLT_MAX (three of each)."""
+    rng = np.random.default_rng(15)
+    sub = rng.integers(1, 1 << 23, 400, dtype=np.uint32).view(np.float32)
+    big = np.finfo(np.float32).max
+    return _shuffled(sub[:200], -sub[200:], _normal((394,)), np.full(3, big), np.full(3, -big))
+
+
+def _one_high_bin():
+    """Keys that differ only in their low 16 bits: every rank in one high bin."""
+    bits = np.uint32(0x3F800000) + np.random.default_rng(16).integers(0, 1 << 16, 5000,
+                                                                       dtype=np.uint32)
+    return bits.view(np.float32)
+
+
+def _two_high_bins():
+    """100 values in [1, 1.0078) and 100 in [3, 3.02): q 50's prev is the
+    last of the first high bin and its next the first of another."""
+    rng = np.random.default_rng(17)
+    return _shuffled(rng.uniform(1.0, 1.0078, 100), rng.uniform(3.0, 3.02, 100))
+
+
+def _phantom():
+    from cellbench.phantoms import make_phantom
+
+    return np.asfortranarray(make_phantom(np.random.default_rng(5), (144, 144, 272))[0])
+
+
+EDGE_QS = (0.0, 0.5, 50.0, 99.5, 100.0)
+
+
 @pytest.mark.parametrize("qkind", ["python", "float64"])
-@pytest.mark.parametrize("shape,qs", [((67,), (0.5, 99.5)), ((40, 31, 17), (0.5, 99.5)),
-                                      ((123456,), (0.0, 0.5, 37.2, 50.0, 99.5, 100.0))],
-                         ids=["67", "40x31x17", "123456"])
-def test_percentiles_match_numpy(shape, qs, qkind):
-    data = (np.random.default_rng(9).standard_normal(shape) * 100).astype(np.float32)
+@pytest.mark.parametrize("make,qs", [
+    (lambda: _normal((67,)), (0.5, 99.5)),
+    (lambda: _normal((40, 31, 17)), (0.5, 99.5)),
+    (lambda: _normal((123456,)), (0.0, 0.5, 37.2, 50.0, 99.5, 100.0)),
+    (_zero_background, (0.5, 30.0, 49.9, 49.99, 50.0, 50.03, 99.5)),
+    (_signed_zeros, (0.5, 20.0, 50.0, 83.35, 83.4, 99.5)),
+    (lambda: -np.abs(_normal((5000,))) - np.float32(1.0), EDGE_QS),
+    (_mixed_sign, EDGE_QS),
+    (_denormals_and_extremes, (0.0, 0.25, 0.5, 10.0, 50.0, 99.5, 100.0)),
+    (_one_high_bin, EDGE_QS),
+    (_two_high_bins, (0.5, 50.0, 99.5)),
+    (lambda: np.float32([2.75]), EDGE_QS),
+    (lambda: np.float32([5.5, -2.25]), EDGE_QS + (37.5,)),
+    (_phantom, EDGE_QS),
+], ids=["67", "40x31x17", "123456", "zero-background", "signed-zeros", "all-negative",
+        "mixed-sign", "denormals-extremes", "one-high-bin", "two-high-bins", "n1", "n2",
+        "phantom-144x144x272-F"])
+def test_percentiles_match_numpy(make, qs, qkind):
+    """Equal to np.percentile and to the JAX library, bit for bit; +0.0 and
+    -0.0 compare as values (``==`` on Python floats)."""
+    data = make()
+    assert data.dtype == np.float32 and np.isfinite(data).all()
     if qkind == "float64":
         qs = tuple(np.float64(q) for q in qs)
     want = [float(np.percentile(data, q)) for q in qs]
@@ -419,6 +496,17 @@ def test_percentiles_other_inputs_take_numpy(data):
         return
     got = fastio.percentiles(data, qs)
     assert np.array_equal(np.float64(got), np.float64(want), equal_nan=True)
+
+
+def test_percentile_plain_counts_non_finite_inputs():
+    finite = _normal((300,))
+    n = fastio.calls["percentile_plain"]
+    fastio.percentiles(finite, (0.5, 99.5))
+    assert fastio.calls["percentile_plain"] == n
+    with_nan = finite.copy()
+    with_nan[7] = np.nan
+    assert np.isnan(fastio.percentiles(with_nan, (0.5, 99.5))).all()
+    assert fastio.calls["percentile_plain"] == n + 1
 
 
 def test_percentiles_refuse_out_of_range_q():
