@@ -35,6 +35,13 @@ Phases:
    calls bit-identical) and B = 16 in f32 (within the order term), timed (CUDA events)
    beside its plain version (``F.conv3d(groups=C)``, cuDNN) and cuDNN on a
    channels-first copy, with its byte and FMA bounds;
+4c. the depthwise 5x5x5 kernel with a bias (``depthwise_conv3d_k5``) at the
+   5 block-conv shapes of MedNeXt-L k5 at a 128^3 window (128^3 x 32 down to
+   8^3 x 512), B = 16 in bf16 (within one bf16 unit in the last place of its
+   plain version beyond the order term; two calls bit-identical) and in f32
+   (within ``order_bound``), each with and without a bias, timed with a bias
+   (CUDA events) beside its plain version and cuDNN's grouped conv on a
+   channels-first copy, with its FMA and byte bounds;
 5. raw -> preprocess: 4 raw SUV-like 144x144x272 phantoms with labels at
    4 mm (body ellipsoid with cold pockets, a scanner bed, air specks, hot
    spheres; seeded) go through the port's
@@ -72,6 +79,13 @@ Phases:
    per volume; logged: vol/s, peak device memory, and under
    ``fused_block`` one volume's time split serially with ``StageTimer``
    (decode, prepare, dispatch, fetch);
+7b. MedNeXt-L k5 (``configs/mednext_l_k5_roi128.yaml``, seeded weights)
+   through ``FusedVolumePipeline`` on the 4 raw volumes, graphed (16
+   windows of 128^3 a volume in one chunk), after one pass that captures:
+   the launch counts, zeroed before the pass, must be 54 of the 5x5x5
+   kernel and 62 of the norm kernel a forward and none of the 3x3x3
+   kernel; each map finite and exactly 0 outside the body mask; logged:
+   vol/s and peak device memory;
 8. the train stage: the port ``Trainer`` at the full ``configs/unet_fl70.yaml``
    model (bf16, batch 2, 48^3, device corpus, ``steps_per_dispatch`` 4,
    separable augmentation, augmentation and dropout on) for 2 epochs on 2
@@ -211,7 +225,8 @@ Phases:
    the kernel's gate: serving, fused pipeline, the training phases'
    validation, the evaluate phase's serving, the multi-rank phase, the
    bucket phase and the torchrun phase, each logged, and the CCL kernel's in preprocess, serving,
-   the fused pipeline and the bucket phase; a graph replay counts every
+   the fused pipeline and the bucket phase, and the 5x5x5 kernel's in
+   phase 7b; a graph replay counts every
    launch it holds), the ``nvidia-smi`` line, and last ``{"ok": true,
    "device": {...}}``.
 
@@ -272,6 +287,11 @@ BLOCKS = [
     ("down3", 6, 64, 128), ("bottleneck", 6, 128, 128), ("up1", 12, 128, 64),
     ("up2", 24, 64, 32), ("up3", 48, 32, 16),
 ]
+
+
+# (D=H=W, C, convs a forward) of MedNeXt-L k5's 54 block depthwise convs at a 128^3 window
+DEPTHWISE5 = [(128, 32, 6), (64, 64, 8), (32, 128, 16), (16, 256, 16), (8, 512, 8)]
+MEDNEXT_YAML = REPO / "configs" / "mednext_l_k5_roi128.yaml"
 
 
 def log(msg: str) -> None:
@@ -667,6 +687,61 @@ def depthwise_phase(batch: int, dtype, gen, timed: bool):
     return rows, worst, worst_ulps
 
 
+def depthwise5_phase(batch: int, dtype, gen, timed: bool):
+    """The 5x5x5 kernel against its plain version at MedNeXt-L k5's 5 block
+    conv shapes, with and without a bias; returns per-shape rows (timed with
+    a bias), the largest absolute error and the largest gap in bf16 ulps
+    beyond the float32 order term (0 in float32, which is held to the order
+    term itself)."""
+    import torch
+    import torch.nn.functional as F
+
+    from light_unet_tpu_torch.ops import depthwise_kernel as dk
+
+    rows, worst, worst_ulps = [], 0.0, 0.0
+    for side, c, convs in DEPTHWISE5:
+        x = torch.randn((batch, side, side, side, c), generator=gen, device="cuda").to(dtype)
+        w = (torch.rand((c, 1, 5, 5, 5), generator=gen, device="cuda") * 2 - 1) / 125 ** 0.5
+        b = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        for bias in (b, None):
+            what = (f"5^3 depthwise kernel {side}^3x{c} {dtype} B={batch} "
+                    f"{'with' if bias is not None else 'without'} bias")
+            got = dk.depthwise_conv3d_k5(x, w, bias)
+            again = dk.depthwise_conv3d_k5(x, w, bias)
+            want = dk.reference_depthwise_conv3d_k5(x, w, bias)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: two calls differ")
+            err = (got.float() - want.float()).abs().max().item()
+            if dtype == torch.bfloat16:
+                ulps = dk.gap_ulps(got, want, x, w, bias)
+                bad = ulps > 1.0
+            else:
+                ulps = 0.0
+                bad = not bool(((got - want).abs() <= dk.order_bound(x, w, bias)).all())
+            if bad:
+                raise AssertionError(f"{what}: abs {err}, {ulps} bf16 ulps beyond the order term")
+            worst, worst_ulps = max(worst, err), max(worst_ulps, ulps)
+            del got, again, want
+        if timed:
+            ms = cuda_ms(lambda: dk.depthwise_conv3d_k5(x, w, b))
+            plain_ms = cuda_ms(lambda: dk.reference_depthwise_conv3d_k5(x, w, b), iters=2,
+                               warmup=1)
+            xc, wc, bc = x.permute(0, 4, 1, 2, 3).contiguous(), w.to(dtype), b.to(dtype)
+            library_ms = cuda_ms(lambda: F.conv3d(xc, wc, bc, 1, 2, 1, c), iters=2, warmup=1)
+            bytes_ms = (2 * x.numel() * x.element_size() + 4 * 126 * c) / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * 125 * x.numel() / F32_FLOPS * 1e3
+            rows.append(dict(side=side, c=c, convs=convs, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms))
+            log(f"  depthwise5 {side}^3x{c} bf16 B={batch} (x{convs} a forward): kernel "
+                f"{ms:.4f} ms ({100 * max(bytes_ms, ops_ms) / ms:.1f} % of its bound), plain "
+                f"{plain_ms:.4f} ms, cuDNN channels-first {library_ms:.4f} ms, bounds bytes "
+                f"{bytes_ms:.4f} / FMA {ops_ms:.4f} ms")
+            del xc
+        del x
+    return rows, worst, worst_ulps
+
+
 def write_raw_cases(raw_dir: Path, seed: int, ids=None, shape=SERVING_SHAPE) -> list:
     """Raw whole-body PET phantoms of ``shape`` at 4 mm with lesion labels,
     seeded (ids 0001-0004 unless given):
@@ -1039,6 +1114,44 @@ def fused_run(config, state: dict, paths: list, profile: bool = False):
         if m.shape != SERVING_SHAPE or not np.isfinite(m).all() or not m.max() > 0:
             raise AssertionError(f"bad fused map {cid}: {m.shape}, max {m.max()}")
     return len(paths) / seconds, torch.cuda.max_memory_allocated(), out, preps, pipe
+
+
+def mednext_serving_phase(paths: list, smi: str) -> int:
+    """7b: MedNeXt-L k5 through ``FusedVolumePipeline`` on ``paths``, graphed,
+    one pass to capture and one counted from zero; returns the 5x5x5
+    kernel's launches in the counted pass."""
+    import torch
+
+    from light_unet_tpu_torch import bench as port_bench
+    from light_unet_tpu_torch.config import Config
+    from light_unet_tpu_torch.models import mednext
+    from light_unet_tpu_torch.ops import depthwise_kernel as dk
+    from light_unet_tpu_torch.ops import norm_kernel
+    from light_unet_tpu_torch.ops.fused import FusedVolumePipeline
+
+    cfg = Config.load(MEDNEXT_YAML)
+    _, apply_fn = port_bench.seeded_model(cfg, "cuda")
+    pipe = FusedVolumePipeline(apply_fn, cfg, patch_batch=cfg.tpu.patch_batch, graphs=True,
+                               device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    fused_pass(pipe, paths[:1])
+    dk.counts5["launches"] = 0
+    dk.launches = norm_kernel.launches = 0
+    forwards = mednext.counts["forwards"]
+    seconds, maps, preps = fused_pass(pipe, paths)
+    forwards = mednext.counts["forwards"] - forwards
+    got = dict(dw5=dk.counts5["launches"], norm=norm_kernel.launches, dw3=dk.launches)
+    if forwards < len(paths) or got != dict(dw5=54 * forwards, norm=62 * forwards, dw3=0):
+        raise AssertionError(f"MedNeXt serving: {forwards} forwards, launches {got}")
+    out = {p.name.split("_")[0]: m for p, m in zip(paths, maps)}
+    for cid, m in out.items():
+        if m.shape != SERVING_SHAPE or not np.isfinite(m).all() or not m.max() > 0:
+            raise AssertionError(f"bad MedNeXt map {cid}: {m.shape}, max {m.max()}")
+    check_zero_outside_body(cfg, out, preps)
+    log(f"  {len(paths) / seconds:.3f} vol/s on {smi}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {forwards} forwards, launches "
+        f"{got}; maps 0 outside the body mask")
+    return got["dw5"]
 
 
 def fused_graphs_ab(state: dict, paths: list, smi: str) -> dict:
@@ -3395,6 +3508,14 @@ def main(argv=None) -> int:
     _, dw_err32, _ = depthwise_phase(4 if args.quick else 16, torch.float32, gen, timed=False)
     log(f"  max abs err: bf16 {dw_err:.3e} ({dw_ulps:.3f} bf16 ulps beyond the float32 order "
         f"term), f32 {dw_err32:.3e}")
+
+    # 4c. the depthwise 5x5x5 kernel with a bias
+    log("[depthwise5 kernel] bf16 B=16, MedNeXt-L k5's block convs")
+    dw5_rows, dw5_err, dw5_ulps = depthwise5_phase(4 if args.quick else 16, torch.bfloat16,
+                                                   gen, timed=not args.quick)
+    _, dw5_err32, _ = depthwise5_phase(2 if args.quick else 16, torch.float32, gen, timed=False)
+    log(f"  max abs err: bf16 {dw5_err:.3e} ({dw5_ulps:.3f} bf16 ulps beyond the float32 order "
+        f"term), f32 {dw5_err32:.3e}")
     log(f"[clocks] after the kernel phases: {nvidia_smi_clocks()}")
     if args.quick:
         log(f"[quick] kernels built and checked in {time.perf_counter() - t_start:.1f} s")
@@ -3478,6 +3599,12 @@ def main(argv=None) -> int:
             del preps, pipe
         check_gates(fused_counts, "fused pipeline run")
         check_against_plain(fused_runs, "fused pipeline")
+
+        # 7b. MedNeXt-L k5 through the fused pipeline on the raw volumes
+        log(f"[mednext] {MEDNEXT_YAML.name}: {N_CASES} raw volumes {SERVING_SHAPE}, seeded "
+            f"weights, graphed")
+        dw5_launches = mednext_serving_phase(raw_paths, smi)
+        torch.cuda.empty_cache()
 
         # 8. the train stage on the processed phantoms
         ids = [p.name.split("_")[0] for p in raw_paths]
@@ -3636,6 +3763,19 @@ def main(argv=None) -> int:
             "bound_by": "bytes",
             "library_ms": sum(r["library_ms"] for r in dw_rows),
         },
+        {
+            "name": "depthwise_conv3d_k5", "route": "cuda",
+            "source": "light_unet_tpu_torch/csrc/depthwise_conv.cu",
+            "replaces": None,
+            "launches": dw5_launches,
+            "max_abs_err": dw5_err, "max_ulps": dw5_ulps,
+            "ms": sum(r["ms"] * r["convs"] for r in dw5_rows),
+            "plain_ms": sum(r["plain_ms"] * r["convs"] for r in dw5_rows),
+            "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) * r["convs"] for r in dw5_rows),
+            "bound_by": ("bytes" if sum(r["bytes_ms"] for r in dw5_rows)
+                         >= sum(r["ops_ms"] for r in dw5_rows) else "operations"),
+            "library_ms": sum(r["library_ms"] * r["convs"] for r in dw5_rows),
+        },
     ]
     log(f"[result] launches: residual_block = serving {counts['fused_block']['block']} + fused "
         f"pipeline {fused_counts['fused_block']['block']} + evaluate-phase serving "
@@ -3648,11 +3788,13 @@ def main(argv=None) -> int:
         f"{bucket_counts['norm']} + torchrun "
         f"phase {torchrun_counts['norm']}; ccl_label = "
         + " + ".join(f"{k} {v}" for k, v in ccl_paths.items()) + "; depthwise_conv3d = "
-        + " + ".join(f"{k} {v}" for k, v in dw_paths.items()))
+        + " + ".join(f"{k} {v}" for k, v in dw_paths.items())
+        + f"; depthwise_conv3d_k5 = MedNeXt fused pipeline (7b) {dw5_launches}")
     log("[result] ccl_label times are means over the 4 closed body masks (144x144x288); "
         f"max_abs_err {ccl_err} is the largest label difference from the plain sweeps over "
         "every mask of phase 13a")
-    log("[result] per-kernel times are sums over one 192-patch bf16 forward; "
+    log("[result] per-kernel times are sums over one 192-patch bf16 forward, "
+        "depthwise_conv3d_k5's over one 16-window MedNeXt-L k5 forward; "
         f"instance_norm_leaky device time {total(norm_rows, 'device_ms', norm_calls):.4f} ms "
         f"(CUDA events {total(norm_rows, 'ms', norm_calls):.4f} ms)")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -21,7 +21,8 @@ uint16 transfer and fetch, sparse fetch, and the plain route (not
 ``--mode bench`` takes no config, as in the JAX CLI, unless ``--config``
 names one: then the pipeline runs that config's model and settings
 (``configs/swinunetr_fs48_roi96.yaml``: SwinUNETR, 20 windows of 96^3 a
-volume).  The CPU baseline times the lightweight U-Net, so a config of
+volume; ``configs/mednext_l_k5_roi128.yaml``: MedNeXt-L k5, 16 windows of
+128^3).  The CPU baseline times the lightweight U-Net, so a config of
 another model prints no baseline: ``vs_baseline`` and
 ``detail.torch_cpu_serial_baseline`` are null.
 

@@ -7,7 +7,7 @@ order; ``bench`` runs ``light_unet_tpu_torch/bench.py`` (the port of the
 repo's ``bench.py``: one JSON line of end-to-end volumes/s) at the bench's
 own settings, as the JAX CLI's does, or with ``--config`` given, at that
 config's model and settings (``configs/swinunetr_fs48_roi96.yaml`` serves
-SwinUNETR).  ``--device`` (default ``cuda``) is
+SwinUNETR, ``configs/mednext_l_k5_roi128.yaml`` MedNeXt-L k5).  ``--device`` (default ``cuda``) is
 where every stage runs.
 
 A multi-process run (``tpu.distributed: true``, ``tpu.num_processes`` > 1,

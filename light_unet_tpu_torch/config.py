@@ -189,7 +189,12 @@ class MetricsConfig:
 SWIN_DEFAULTS = {"feature_size": 48, "depths": [2, 2, 2, 2], "num_heads": [3, 6, 12, 24],
                  "window_size": 7, "mlp_ratio": 4.0}
 SWIN_DOWNSAMPLING = 32  # the patch embedding (2) and four merges (2^4)
-_SWIN = {"omit_unset": True}
+_OMIT_UNSET = {"omit_unset": True}
+# MedNeXt-L as upstream's create_mednextv1_large builds it, at kernel 5
+# (models/mednext.py)
+MEDNEXT_DEFAULTS = {"n_channels": 32, "exp_r": [3, 4, 8, 8, 8, 8, 8, 4, 3],
+                    "block_counts": [3, 4, 8, 8, 8, 8, 8, 4, 3], "kernel_size": 5}
+MEDNEXT_DOWNSAMPLING = 16  # four stride-2 down blocks
 
 
 @dataclass
@@ -212,41 +217,60 @@ class ModelConfig:
     # model and then left out of to_dict(), so that its configs read and
     # write what the JAX package's do; validate() gives an unset one
     # MONAI's value (SWIN_DEFAULTS)
-    feature_size: Optional[int] = field(default=None, metadata=_SWIN)
-    depths: Optional[List[int]] = field(default=None, metadata=_SWIN)
-    num_heads: Optional[List[int]] = field(default=None, metadata=_SWIN)
-    window_size: Optional[int] = field(default=None, metadata=_SWIN)
-    mlp_ratio: Optional[float] = field(default=None, metadata=_SWIN)
+    feature_size: Optional[int] = field(default=None, metadata=_OMIT_UNSET)
+    depths: Optional[List[int]] = field(default=None, metadata=_OMIT_UNSET)
+    num_heads: Optional[List[int]] = field(default=None, metadata=_OMIT_UNSET)
+    window_size: Optional[int] = field(default=None, metadata=_OMIT_UNSET)
+    mlp_ratio: Optional[float] = field(default=None, metadata=_OMIT_UNSET)
+    # MedNeXt's keys (models/mednext.py), likewise unset for the other models
+    # and left out of to_dict(); validate() gives an unset one MedNeXt-L's
+    # value (MEDNEXT_DEFAULTS)
+    n_channels: Optional[int] = field(default=None, metadata=_OMIT_UNSET)
+    exp_r: Optional[List[int]] = field(default=None, metadata=_OMIT_UNSET)
+    block_counts: Optional[List[int]] = field(default=None, metadata=_OMIT_UNSET)
+    kernel_size: Optional[int] = field(default=None, metadata=_OMIT_UNSET)
 
     def validate(self):
         if len(self.encoder_channels) != 4:
             raise ConfigError("model.encoder_channels must have 4 levels")
-        given = [k for k in SWIN_DEFAULTS if getattr(self, k) is not None]
-        if self.name == "Lightweight3DUNet":
-            if given:
-                raise ConfigError(f"model.{given[0]} is a SwinUNETR key")
-        elif self.name == "SwinUNETR":
+        for model, keys in (("SwinUNETR", SWIN_DEFAULTS), ("MedNeXt", MEDNEXT_DEFAULTS)):
+            given = [k for k in keys if getattr(self, k) is not None]
+            if given and self.name != model:
+                raise ConfigError(f"model.{given[0]} is a {model} key")
+        if self.name == "SwinUNETR":
             self._validate_swin()
-        else:
+        elif self.name == "MedNeXt":
+            self._validate_mednext()
+        elif self.name != "Lightweight3DUNet":
             raise ConfigError(f"unknown model {self.name!r}")
+
+    def _positive_ints(self, key, n=None):
+        v = getattr(self, key)
+        items = v if isinstance(v, list) else [v]
+        if (n is not None and (not isinstance(v, list) or len(v) != n)) or not all(
+                isinstance(i, int) and not isinstance(i, bool) and i > 0 for i in items):
+            what = f"a list of {n} positive ints" if n else "a positive int"
+            raise ConfigError(f"model.{key} must be {what}, got {v!r}")
+
+    def _validate_mednext(self):
+        for k, v in MEDNEXT_DEFAULTS.items():
+            if getattr(self, k) is None:
+                setattr(self, k, copy.deepcopy(v))
+        self._positive_ints("n_channels")
+        self._positive_ints("exp_r", 9)
+        self._positive_ints("block_counts", 9)
+        if self.kernel_size not in (3, 5) or isinstance(self.kernel_size, bool):
+            raise ConfigError(f"model.kernel_size must be 3 or 5, got {self.kernel_size!r}")
 
     def _validate_swin(self):
         for k, v in SWIN_DEFAULTS.items():
             if getattr(self, k) is None:
                 setattr(self, k, copy.deepcopy(v))
 
-        def positive_ints(key, n=None):
-            v = getattr(self, key)
-            items = v if isinstance(v, list) else [v]
-            if (n is not None and (not isinstance(v, list) or len(v) != n)) or not all(
-                    isinstance(i, int) and not isinstance(i, bool) and i > 0 for i in items):
-                what = f"a list of {n} positive ints" if n else "a positive int"
-                raise ConfigError(f"model.{key} must be {what}, got {v!r}")
-
-        positive_ints("feature_size")
-        positive_ints("depths", 4)
-        positive_ints("num_heads", 4)
-        positive_ints("window_size")
+        self._positive_ints("feature_size")
+        self._positive_ints("depths", 4)
+        self._positive_ints("num_heads", 4)
+        self._positive_ints("window_size")
         if self.feature_size % 12:
             raise ConfigError("model.feature_size must be a multiple of 12 (MONAI's rule)")
         for i, heads in enumerate(self.num_heads):
@@ -560,13 +584,15 @@ class Config:
             raise ConfigError("tpu.sparse_fetch_frac must be in (0,1]")
         if self.tpu.steps_per_dispatch < 1:
             raise ConfigError("tpu.steps_per_dispatch must be >= 1")
-        if self.model.name == "SwinUNETR":
-            if any(p % SWIN_DOWNSAMPLING for p in self.data.patch_size):
-                raise ConfigError(f"data.patch_size must be multiples of {SWIN_DOWNSAMPLING} "
-                                  f"for SwinUNETR, got {self.data.patch_size}")
+        name = self.model.name
+        down = {"SwinUNETR": SWIN_DOWNSAMPLING, "MedNeXt": MEDNEXT_DOWNSAMPLING}.get(name)
+        if down:
+            if any(p % down for p in self.data.patch_size):
+                raise ConfigError(f"data.patch_size must be multiples of {down} for {name}, "
+                                  f"got {self.data.patch_size}")
             if self.tpu.fused_block:
                 raise ConfigError("tpu.fused_block runs the lightweight U-Net's block kernel; "
-                                  "SwinUNETR has no such route")
+                                  f"{name} has no such route")
         return self
 
     # ------------------------------------------------------------------

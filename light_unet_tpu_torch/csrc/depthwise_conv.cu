@@ -386,6 +386,169 @@ cudaError_t run(const T* x, const float* w, T* y, int B, int D, int H, int W, in
   return run_scalar<T, 8, false>(x, w, y, B, D, H, W, C, s);
 }
 
+// ---------------------------------------------------------------------------
+// Depthwise 5x5x5 convolution with a per-channel bias, stride 1, zero edge
+// (the block conv of MedNeXt, models/mednext.py):
+//   y[b, d, h, w, c] = bias[c] + sum over kd, kh, kw in [0, 5) of
+//                      x[b, d + kd - 2, h + kh - 2, w + kw - 2, c] * w[c][kd][kh][kw]
+// f32 FMAs in the order (kd, kh, kw), the bias added last, the output rounded
+// once to T; weights and bias arrive in float32 and are rounded to T on load:
+// F.conv3d(groups=C) in float32 of the weight and bias rounded to T.  Replaces no TPU kernel
+// (the JAX package has no MedNeXt); added because cuDNN's 3-D depthwise
+// convolutions run far from either bound (see the 3x3x3 kernel above).
+//
+// Bound on the card: operations.  125 f32 FMAs an output on the CUDA cores
+// (67 TFLOP/s) against 4 bytes an output in bf16 (3.35 TB/s): the FMA time is
+// about 3x the byte time.  So the design keeps the FMA pipe fed and spends
+// little on anything else:
+//   - a thread owns one channel x 8 voxels along W of one row, its 125 taps
+//     in registers, and marches along D with five rolling accumulators, the
+//     outputs of planes d + 2 (kd = 0) .. d - 2 (kd = 4): each staged input
+//     row (12 values) feeds 5 kw x 5 kd x 8 = 200 FMAs, so about 94 % of the
+//     issued instructions are FMAs; after plane d the output d - 2 is
+//     complete, stored, and the accumulators shift by one (40 moves a plane);
+//   - lanes of a warp are consecutive channels, so a staged row's loads and
+//     the output's stores are contiguous across the warp; a CTA owns CG
+//     channels (32, 16 or 8, as C allows) x TH rows x 8 columns (TH * CG =
+//     128 threads) and stages each input plane with its two-voxel halo in
+//     shared memory by 16-byte cp.async copies along C, two planes ahead in
+//     a ring of three (halo reads come from L2).
+// Kernels are named dw5_* so that a trace tells them from the 3x3x3 ones.
+// Nothing is allocated or summed across threads: every run gives the same bits.
+
+constexpr int k5Taps = 125;
+constexpr int k5Halo = 2;
+constexpr int k5RW = 8;         // outputs along W a thread, and the tile's width
+constexpr int k5Threads = 128;
+
+template <typename T, int CG>
+struct Dw5Tile {
+  static constexpr int TH = k5Threads / CG;             // rows of the tile
+  static constexpr int SH = TH + 2 * k5Halo;            // staged rows
+  static constexpr int SW = k5RW + 2 * k5Halo;          // staged columns
+  static constexpr int V = 16 / (int)sizeof(T);         // elements of one 16-byte copy
+  static constexpr int Q = CG / V;                      // copies a staged voxel
+  static constexpr int ROW = SW * CG;                   // elements of a staged row
+  static constexpr int PLANE = SH * ROW;                // elements of a staged plane
+  static constexpr int UNITS = SH * SW * Q;             // copies a plane
+};
+
+// grid: one CTA per (sample, channel group, tile of rows, tile of columns)
+template <typename T, int CG>
+__global__ void __launch_bounds__(k5Threads, 2)
+dw5_vec(const T* __restrict__ x, const float* __restrict__ wt, const float* __restrict__ bias,
+        T* __restrict__ y, int D, int H, int W, int C, int tiles_w, int tiles_hw, int groups) {
+  using L = Dw5Tile<T, CG>;
+  __shared__ __align__(16) unsigned char smem[kRing * L::PLANE * sizeof(T)];
+  T* s = reinterpret_cast<T*>(smem);
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x % tiles_hw, bg = blockIdx.x / tiles_hw;
+  const int b = bg / groups, c0 = (bg % groups) * CG;
+  const int h0 = (tile / tiles_w) * L::TH, w0 = (tile % tiles_w) * k5RW;
+  const long plane = (long)H * W * C;
+  const T* xs = x + (long)b * D * plane;
+  T* ys = y + (long)b * D * plane;
+  const int ci = tid % CG, r = tid / CG;
+  const int c = c0 + ci;
+
+  float tap[k5Taps];  // tap kd*25 + kh*5 + kw of channel c, rounded to T
+  {
+    const float* wp = wt + (long)c * k5Taps;
+#pragma unroll
+    for (int i = 0; i < k5Taps; ++i) tap[i] = lu::round_to<T>(__ldg(wp + i));
+  }
+  const float b0 = bias ? lu::round_to<T>(__ldg(bias + c)) : 0.f;
+
+  auto stage_plane = [&](int d) {  // plane d with its halo into slot d % kRing
+    T* buf = s + (d % kRing) * L::PLANE;
+    const T* xp = xs + (long)d * plane;
+    for (int u = tid; u < L::UNITS; u += k5Threads) {
+      const int q = u % L::Q, rest = u / L::Q;
+      const int ww = rest % L::SW, hh = rest / L::SW;
+      const int h = h0 - k5Halo + hh, w = w0 - k5Halo + ww;
+      const bool in = (unsigned)h < (unsigned)H && (unsigned)w < (unsigned)W;
+      const T* src = in ? xp + (long)(h * W + w) * C + c0 + q * L::V : xs;
+      cp_async16(buf + hh * L::ROW + ww * CG + q * L::V, src, in ? 16 : 0);
+    }
+  };
+
+  float acc[5][k5RW];  // acc[kd]: the output of plane d + 2 - kd
+#pragma unroll
+  for (int k = 0; k < 5; ++k)
+#pragma unroll
+    for (int j = 0; j < k5RW; ++j) acc[k][j] = 0.f;
+
+  auto store_and_shift = [&](int q) {  // acc[4] is output q (stored if q >= 0)
+    const int h = h0 + r;
+    if (q >= 0 && h < H) {
+      T* out = ys + ((long)(q * H + h) * W + w0) * C + c;
+#pragma unroll
+      for (int j = 0; j < k5RW; ++j)
+        if (w0 + j < W) out[(long)j * C] = lu::from_f<T>(acc[4][j] + b0);
+    }
+#pragma unroll
+    for (int j = 0; j < k5RW; ++j) {
+      acc[4][j] = acc[3][j];
+      acc[3][j] = acc[2][j];
+      acc[2][j] = acc[1][j];
+      acc[1][j] = acc[0][j];
+      acc[0][j] = 0.f;
+    }
+  };
+
+  stage_plane(0);
+  cp_async_commit();
+  if (D > 1) stage_plane(1);
+  cp_async_commit();
+  for (int d = 0; d < D; ++d) {
+    if (d + 2 < D) stage_plane(d + 2);
+    cp_async_commit();  // one group a plane, empty or not, so wait<2> finds plane d
+    cp_async_wait<2>();
+    __syncthreads();
+    const T* p = s + (d % kRing) * L::PLANE + r * L::ROW + ci;
+#pragma unroll
+    for (int kh = 0; kh < 5; ++kh) {
+      float v[k5RW + 2 * k5Halo];
+#pragma unroll
+      for (int i = 0; i < k5RW + 2 * k5Halo; ++i) v[i] = lu::to_f<T>(p[kh * L::ROW + i * CG]);
+#pragma unroll
+      for (int kw = 0; kw < 5; ++kw)
+#pragma unroll
+        for (int kd = 0; kd < 5; ++kd) {
+          const float t = tap[kd * 25 + kh * 5 + kw];
+#pragma unroll
+          for (int j = 0; j < k5RW; ++j) acc[kd][j] = fmaf(v[j + kw], t, acc[kd][j]);
+        }
+    }
+    store_and_shift(d - 2);  // plane d was output d - 2's last (kd = 4)
+    __syncthreads();         // slot d % kRing is free for the copy of plane d + 3
+  }
+  store_and_shift(D - 2);  // planes D and D + 1 are zero: outputs D - 2, D - 1 are complete
+  store_and_shift(D - 1);
+}
+
+template <typename T, int CG>
+cudaError_t run5_vec(const T* x, const float* w, const float* bias, T* y, int B, int D, int H,
+                     int W, int C, cudaStream_t s) {
+  using L = Dw5Tile<T, CG>;
+  const int tw = (int)ceil_div(W, k5RW), thw = (int)ceil_div(H, L::TH) * tw, groups = C / CG;
+  const long blocks = (long)B * groups * thw;
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
+  dw5_vec<T, CG><<<(unsigned)blocks, k5Threads, 0, s>>>(x, w, bias, y, D, H, W, C, tw, thw,
+                                                        groups);
+  return cudaGetLastError();
+}
+
+// The plan, from the shape alone: 32 channels a CTA where C % 32 == 0, else 16,
+// else 8 (C % 8 == 0: a 16-byte copy holds whole channels of one voxel).
+template <typename T>
+cudaError_t run5(const T* x, const float* w, const float* bias, T* y, int B, int D, int H, int W,
+                 int C, cudaStream_t s) {
+  if (C % 32 == 0) return run5_vec<T, 32>(x, w, bias, y, B, D, H, W, C, s);
+  if (C % 16 == 0) return run5_vec<T, 16>(x, w, bias, y, B, D, H, W, C, s);
+  return run5_vec<T, 8>(x, w, bias, y, B, D, H, W, C, s);
+}
+
 }  // namespace
 
 // x, y: [B, D, H, W, C] of dtype (x 16-byte aligned); w: float32 [C][27]
@@ -405,5 +568,26 @@ extern "C" int depthwise_conv3d(const void* x, const void* w, void* y, int dtype
                H, W, C, s);
   if (dtype == lu::kF32)
     return run(static_cast<const float*>(x), wf, static_cast<float*>(y), B, D, H, W, C, s);
+  return cudaErrorInvalidValue;
+}
+
+// x, y: [B, D, H, W, C] of dtype (x and y 16-byte aligned, C a multiple of
+// 8); w: float32 [C][125] (the parameter [C, 1, 5, 5, 5]); bias: float32 [C]
+// or null.  Launches on stream; returns a cudaError_t.
+extern "C" int depthwise_conv3d_k5(const void* x, const void* w, const void* bias, void* y,
+                                   int dtype, int B, int D, int H, int W, int C, void* stream) {
+  if (B < 1 || D < 1 || H < 1 || W < 1 || C < 8 || C % 8 || (long)H * W >= 0x7fffffffL ||
+      (long)D * H >= 0x7fffffffL)
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(y) % 16)
+    return cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(bias);
+  if (dtype == lu::kBF16)
+    return run5(static_cast<const __nv_bfloat16*>(x), wf, bf, static_cast<__nv_bfloat16*>(y), B,
+                D, H, W, C, s);
+  if (dtype == lu::kF32)
+    return run5(static_cast<const float*>(x), wf, bf, static_cast<float*>(y), B, D, H, W, C, s);
   return cudaErrorInvalidValue;
 }

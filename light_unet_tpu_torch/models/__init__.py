@@ -1,5 +1,6 @@
 """The models, their losses and metrics (the names ``light_unet_tpu.models``
-re-exports, and the port's second model, ``SwinUNETR``, for inference).
+re-exports, and the port's other models, ``SwinUNETR`` and ``MedNeXt``, for
+inference).
 ``init_params`` has no counterpart: a torch module holds its parameters
 from construction (``unet3d.init_weights`` draws them from a generator), so
 the port has no separate initializing forward."""
@@ -10,6 +11,7 @@ from light_unet_tpu_torch.models.unet3d import (  # noqa: F401
     count_parameters,
 )
 from light_unet_tpu_torch.models.swin_unetr import SwinUNETR  # noqa: F401
+from light_unet_tpu_torch.models.mednext import MedNeXt  # noqa: F401
 from light_unet_tpu_torch.models.losses import (  # noqa: F401
     bce_loss,
     combined_loss,

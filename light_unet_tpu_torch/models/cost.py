@@ -33,6 +33,24 @@ Bytes: each linear and convolution reads its input and writes its output
 once; an MLP reads its input and writes its output (its hidden layer kept
 on chip); the attention reads q, k and v, writes its output and reads the
 float32 bias table once.
+
+MedNeXt (``models/mednext.py``) is counted by ``mednext_forward_terms``, each
+row of one ``kind``: ``depthwise`` (a block's depthwise k^3 conv),
+``pointwise`` (the stem, and each block's expansion MLP, W2 and W3, with the
+Down's R or the Up's RT), ``resample`` (the Downs' strided and the Ups'
+transposed depthwise convs) and ``head``.  Operations are
+``FlopCounterMode``'s (2 x multiply-accumulates; a transposed conv's are
+counted over its input's voxels, as the counter does); GroupNorm, GELU,
+pads and adds are not counted.  Bytes: a depthwise or resampling conv reads
+its input and writes its output once; a ``pointwise`` row of a block reads
+the depthwise conv's output (C a voxel) and the residual, and writes the
+block's output (C'), the norm, the MLP's hidden layer and the adds fused
+(a Down reads its input at the even voxels for R; an Up reads its input for
+RT and the encoder's skip, and writes the padded (2n)^3 output); the stem
+reads one channel and writes n; the head writes float32.
+``mednext_depthwise_cost`` gives the 54 block depthwise convs alone: their
+input read, their output written, and their float32 weights and biases read
+once.
 """
 
 from __future__ import annotations
@@ -209,10 +227,69 @@ def swin_forward_terms(model_cfg, batch: int, patch: Union[int, Sequence[int]],
     return rows
 
 
+def _mednext_widths(model_cfg):
+    n = model_cfg.n_channels
+    return [n, 2 * n, 4 * n, 8 * n, 16 * n, 8 * n, 4 * n, 2 * n, n]
+
+
+def mednext_forward_terms(model_cfg, batch: int, patch: Union[int, Sequence[int]],
+                          dtype=torch.bfloat16) -> List[Dict]:
+    """MedNeXt's rows (``op``, ``kind``, ``flops``, ``bytes``) for ``batch``
+    patches, in the order the forward runs them."""
+    dims = (patch,) * 3 if isinstance(patch, int) else tuple(int(p) for p in patch)
+    it = torch.empty((), dtype=dtype).element_size()
+    k3 = model_cfg.kernel_size ** 3
+    width, r = _mednext_widths(model_cfg), list(model_cfg.exp_r)
+    vox = [dims[0] * dims[1] * dims[2] // 8 ** lv for lv in range(5)]
+    rows = []
+
+    def add(op, kind, flops, nbytes):
+        rows.append(dict(op=op, kind=kind, flops=batch * flops, bytes=batch * nbytes * it))
+
+    def blocks(name, i, lv):
+        c, v = width[i], vox[lv]
+        for j in range(model_cfg.block_counts[i]):
+            add(f"{name}.{j}.conv1", "depthwise", 2 * k3 * c * v, 2 * c * v)
+            add(f"{name}.{j}.mlp", "pointwise", 2 * 2 * c * r[i] * c * v, 3 * c * v)
+
+    add("stem", "pointwise", 2 * width[0] * vox[0], (1 + width[0]) * vox[0])
+    for i in range(4):
+        blocks(f"enc_block_{i}", i, i)
+        c, c2, ri, v_in, v = width[i], 2 * width[i], r[i + 1], vox[i], vox[i + 1]
+        add(f"down_{i}.conv1", "resample", 2 * k3 * c * v, c * (v_in + v))
+        add(f"down_{i}.mlp", "pointwise", 2 * (c * ri * c + ri * c * c2 + c * c2) * v,
+            (2 * c + c2) * v)
+    blocks("bottleneck", 4, 4)
+    for j, i in enumerate((3, 2, 1, 0)):
+        c, c2, ri, v_in, v = width[4 + j], width[5 + j], r[5 + j], vox[i + 1], vox[i]
+        inner = (2 * dims[0] // 2 ** (i + 1) - 1) * (2 * dims[1] // 2 ** (i + 1) - 1) \
+            * (2 * dims[2] // 2 ** (i + 1) - 1)  # the transposed conv's 2n - 1
+        add(f"up_{i}.conv1", "resample", 2 * k3 * c * v_in, c * (v_in + inner))
+        add(f"up_{i}.mlp", "pointwise", 2 * (c * ri * c + ri * c * c2) * inner + 2 * c * c2 * v_in,
+            c * (inner + v_in) + 2 * c2 * v)
+        blocks(f"dec_block_{i}", 5 + j, i)
+    out = model_cfg.output_channels
+    rows.append(dict(op="out_0", kind="head", flops=2 * width[0] * out * vox[0] * batch,
+                     bytes=batch * vox[0] * (width[0] * it + out * 4)))
+    return rows
+
+
+def mednext_depthwise_cost(model_cfg, batch: int, patch: Union[int, Sequence[int]],
+                           dtype=torch.bfloat16) -> Tuple[int, int]:
+    """(operations, bytes) of the block depthwise convs alone (``kind``
+    depthwise): their input read and output written, and their float32
+    weights and biases read once."""
+    rows = [r for r in mednext_forward_terms(model_cfg, batch, patch, dtype)
+            if r["kind"] == "depthwise"]
+    params = sum(4 * (model_cfg.kernel_size ** 3 + 1) * c * n
+                 for c, n in zip(_mednext_widths(model_cfg), model_cfg.block_counts))
+    return sum(r["flops"] for r in rows), sum(r["bytes"] for r in rows) + params
+
+
 def parameter_count(model_cfg) -> int:
     """Parameters of ``models/unet3d.py:build_model(model_cfg)``, built on
     the meta device (217,228 for the flagship config; 62,186,659 for
-    SwinUNETR at feature size 48)."""
+    SwinUNETR at feature size 48; 62,992,866 for MedNeXt-L at kernel 5)."""
     with torch.device("meta"):
         return sum(p.numel() for p in build_model(model_cfg, inference=True).parameters())
 
@@ -220,9 +297,11 @@ def parameter_count(model_cfg) -> int:
 def forward_cost(model_cfg, batch: int, patch: Union[int, Sequence[int]],
                  dtype=torch.bfloat16) -> Tuple[int, int]:
     """(operations, bytes) of one forward of ``batch`` patches: the sums of
-    ``forward_terms`` (``swin_forward_terms`` for SwinUNETR), plus the
-    float32 parameters read once."""
-    terms = swin_forward_terms if model_cfg.name == "SwinUNETR" else forward_terms
+    ``forward_terms`` (``swin_forward_terms`` for SwinUNETR,
+    ``mednext_forward_terms`` for MedNeXt), plus the float32 parameters read
+    once."""
+    terms = {"SwinUNETR": swin_forward_terms,
+             "MedNeXt": mednext_forward_terms}.get(model_cfg.name, forward_terms)
     rows = terms(model_cfg, batch, patch, dtype)
     return (sum(r["flops"] for r in rows),
             sum(r["bytes"] for r in rows) + 4 * parameter_count(model_cfg))

@@ -303,14 +303,19 @@ def build_model(model_cfg, compute_dtype=torch.float32, inference: bool = False,
                 use_pallas: bool = False) -> nn.Module:
     """Construct the model that ``model_cfg.name`` names from a ``ModelConfig``:
     the lightweight U-Net (same switches as the JAX package's ``build_model``)
-    or, for inference only, ``models/swin_unetr.py:SwinUNETR``.  ``use_pallas``
-    is ignored: ``cellbench/drivers/serve_raw.py`` still passes it."""
-    if model_cfg.name == "SwinUNETR":
+    or, for inference only, ``models/swin_unetr.py:SwinUNETR`` or
+    ``models/mednext.py:MedNeXt``.  ``use_pallas`` is ignored:
+    ``cellbench/drivers/serve_raw.py`` still passes it."""
+    if model_cfg.name in ("SwinUNETR", "MedNeXt"):
+        if not inference:
+            raise ValueError(f"{model_cfg.name} is built for inference only: the port does not "
+                             "train it")
+        if model_cfg.name == "MedNeXt":
+            from light_unet_tpu_torch.models.mednext import build_mednext
+
+            return build_mednext(model_cfg, compute_dtype)
         from light_unet_tpu_torch.models.swin_unetr import build_swin_unetr
 
-        if not inference:
-            raise ValueError("SwinUNETR is built for inference only: the port does not "
-                             "train it")
         return build_swin_unetr(model_cfg, compute_dtype)
     dropout = model_cfg.dropout_p if (model_cfg.use_dropout and not inference) else 0.0
     return Lightweight3DUNet(

@@ -48,6 +48,8 @@ ENTRIES = {
     "depthwise_conv": {
         # x, weight, y, dtype, B, D, H, W, C, stream
         "depthwise_conv3d": [_P] * 3 + [_I] * 6 + [_P],
+        # x, weight, bias, y, dtype, B, D, H, W, C, stream
+        "depthwise_conv3d_k5": [_P] * 4 + [_I] * 6 + [_P],
     },
     "instance_norm": {
         # x, scale, bias, y, part, sync, dtype, B, S, C, plan[8], eps, slope, stream

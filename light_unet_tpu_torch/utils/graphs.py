@@ -35,7 +35,8 @@ a generator moves the stream the graphs read.  The kernels' launch counters
 captured launch once per replay and not at the capture, which runs nothing;
 so do the counter dicts that modules register with
 ``tracing.register_counts`` (SwinUNETR's forwards and window attention
-calls and tokens).
+calls and tokens, MedNeXt's forwards and blocks, the 5^3 depthwise kernel's
+launches).
 Graph memory (the pool's growth at each capture) is charged to an
 ``HbmLedger`` when one is given, and every capture appends a ``Capture``
 record (runner, key, warm-up and capture seconds, pool growth, reserved and

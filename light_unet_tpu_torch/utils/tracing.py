@@ -22,7 +22,8 @@
   ``snapshot()`` returns the counters with the program's module counters
   (kernel launches, native calls, graph replays and captures by runner,
   and the dicts that modules register with ``register_counts``, such as
-  SwinUNETR's forwards and attention calls and tokens).
+  SwinUNETR's forwards and attention calls and tokens, MedNeXt's forwards,
+  blocks and resampling convs, and the 5^3 depthwise kernel's launches).
 * ``StageTimer`` accumulates wall-clock time of named stages across
   ``time(name)`` blocks and reports totals, calls and seconds per call, or
   writes them as JSON (the JAX package's keys and rounding).  It reads the

@@ -233,9 +233,10 @@ def test_kernel_source_plan_and_rules():
     for banned in ("cudaMalloc", "atomicAdd", "getenv", "cudaMemset"):
         assert banned not in text, banned
     assert "cp.async.cg.shared.global [%0], [%1], 16" in text
-    assert text.count("<<<") == 1  # one launch site: one kernel launch a call
+    # one launch site a variant (3x3x3, and 5x5x5 with a bias): one launch a call
+    assert text.count("<<<") == 2
     entries = _build.ENTRIES["depthwise_conv"]
-    assert list(entries) == ["depthwise_conv3d"]
+    assert list(entries) == ["depthwise_conv3d", "depthwise_conv3d_k5"]
 
 
 def _sum_in_order(x: np.ndarray, w: np.ndarray, order) -> np.ndarray:

@@ -22,8 +22,8 @@ from light_unet_tpu_torch.utils.yaml_subset import YamlSubsetError
 REPO = Path(__file__).resolve().parents[1]
 SHIPPED = sorted((REPO / "configs").glob("*.yaml"))
 SHIPPED_IDS = [p.name for p in SHIPPED]
-# the configs both packages read; a SwinUNETR config is the port's alone (the
-# JAX package builds one model)
+# the configs both packages read; a SwinUNETR or MedNeXt config is the port's
+# alone (the JAX package builds one model)
 CONFIGS = [p for p in SHIPPED
            if yaml.safe_load(p.read_text())["model"]["name"] == "Lightweight3DUNet"]
 CONFIG_IDS = [p.name for p in CONFIGS]
@@ -32,9 +32,9 @@ PORT_ONLY_IDS = [p.name for p in SHIPPED if p not in CONFIGS]
 
 def test_the_three_shipped_configs_are_found():
     """Three configs of the lightweight U-Net, which both packages read, and
-    the port's SwinUNETR config."""
+    the port's SwinUNETR and MedNeXt configs."""
     assert CONFIG_IDS == ["unet_fl70.yaml", "unet_fl70_pod.yaml", "unet_mixed_fl_dlbcl.yaml"]
-    assert PORT_ONLY_IDS == ["swinunetr_fs48_roi96.yaml"]
+    assert PORT_ONLY_IDS == ["mednext_l_k5_roi128.yaml", "swinunetr_fs48_roi96.yaml"]
 
 
 @pytest.mark.parametrize("path", SHIPPED, ids=SHIPPED_IDS)
